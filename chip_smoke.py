@@ -8,18 +8,25 @@ Phases, each of which raises on failure (the run then exits non-zero):
 1. setup — print the card's name and power limit, build every CUDA kernel
    from ``tpu_resiliency_torch/ops/csrc/`` (one ``nvcc`` per source, all
    started together) and print the build time and ``ptxas`` report;
-2. kernel — hold the quorum local max kernel against its plain PyTorch
-   version on the card, exactly, at sizes 1 .. 2^20 on random and packed
-   ages, and time it beside the plain version and ``torch.amax``;
+2. kernel — hold both quorum local max entries against their plain
+   PyTorch versions and numpy on the card, exactly: the pointer entry at
+   sizes 1 .. 2^24 and start offsets 0-3, the by-value entry at n <= 32, on
+   random, packed and all-negative ages.  Then time, in turns on the card,
+   each entry beside an empty launch through the same binding (the launch
+   floor), the plain version and ``torch.amax`` at n = 1, 2^20 and 2^24,
+   and the lane's route from host ages to the send buffer at n_local = 1:
+   the old pinned copy + kernel, the by-value launch, and pinned copy +
+   ``torch.amax``;
 3. check — the port's model on the card in f32 against the same model on
    the CPU, at a small size (loss before and after one step);
 4. train — the main path: the flagship ``TransformerConfig()`` at full
    width (batch 8 x seq 1024, bf16 with an fp32 master) trained for 3 + 10
    steps in a world of one process over NCCL, each step wrapped by
    ``FusedStepQuorum(identify=True)`` while ``QuorumMonitor(identify=True)``
-   ticks from its thread.  The kernel's launch count is zeroed just before
-   and read just after: every fused step and every tick must have launched
-   it.  The loss must be finite and fall, with zero trips;
+   ticks from its thread.  The kernel's launch counts are zeroed just
+   before and read just after: every fused step and every tick must have
+   launched it exactly once, all by value.  The loss must be finite and
+   fall, with zero trips;
 5. hang — freeze both heartbeats with a 50 ms budget: the monitor must trip
    naming device 0, and the fused lane must trip on the next step.
 
@@ -47,7 +54,8 @@ HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 
-KERNEL_SIZES = (1, 8, 1000, 1024, 1025, 65536, 1 << 20)
+KERNEL_SIZES = (1, 8, 31, 32, 33, 1000, 1024, 1025, 65536, 1 << 20,
+                (1 << 20) + 3, 1 << 24)
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 WARMUP_STEPS, TIMED_STEPS = 3, 10
 HANG_BUDGET_MS = 50.0
@@ -77,6 +85,18 @@ def time_ms(fn, iters: int, torch) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_in_turns(fns: dict, iters: int, rounds: int, torch) -> dict:
+    """Median ms per call of each of ``fns``, timed in turns on one card:
+    forward then backward order (kernel, amax, amax, kernel), ``rounds``
+    times."""
+    names = list(fns)
+    samples = {name: [] for name in names}
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            samples[name].append(time_ms(fns[name], iters, torch))
+    return {name: sorted(v)[len(v) // 2] for name, v in samples.items()}
+
+
 def local_max_bound_ms(n: int) -> tuple:
     """Least time for the local max of n int32: read 4n bytes, write 4, and
     n - 1 compares."""
@@ -94,51 +114,114 @@ def train_step_flops(cfg, batch: int, seq: int) -> int:
     return 3 * batch * seq * per_token
 
 
+def _ages(np, rng, kind: str, n: int, q):
+    if kind == "random":
+        return rng.integers(0, 2 ** 31 - 1, size=n, dtype=np.int64).astype(np.int32)
+    if kind == "packed":
+        return q.pack_age_device(rng.integers(0, 2 ** 17, size=n),
+                                 rng.integers(0, 1 << 16, size=n))
+    return rng.integers(-2 ** 31, 0, size=n, dtype=np.int64).astype(np.int32)
+
+
+def _at_offset(torch, values, offset: int, dev):
+    """``values`` on the card as a contiguous view ``offset`` int32 elements
+    past a 16-byte boundary."""
+    base = torch.empty(values.size + 8, dtype=torch.int32, device=dev)
+    lead = (-(base.data_ptr() >> 2)) % 4
+    x = base[lead + offset:lead + offset + values.size]
+    x.copy_(torch.from_numpy(values))
+    return x
+
+
 def kernel_phase(torch, np, q) -> dict:
-    """The kernel against its plain version at every size; times at the
-    path's shape (n = 1) and at n = 2^20."""
+    """Both entries against their plain versions at every size and offset;
+    times in turns at n = 1 (the path's shape), 2^20 and 2^24, and the
+    lane's route at n_local = 1."""
     dev = torch.device("cuda", torch.cuda.current_device())
+    index = dev.index
     rng = np.random.default_rng(0)
     worst = 0
+    out = torch.empty(1, dtype=torch.int32, device=dev)
     for n in KERNEL_SIZES:
-        ages = rng.integers(0, 2 ** 31 - 1, size=n, dtype=np.int64).astype(np.int32)
-        packed = q.pack_age_device(
-            rng.integers(0, 2 ** 17, size=n), rng.integers(0, 1 << 16, size=n)
-        )
-        for values in (ages, packed):
-            x = torch.from_numpy(values).to(dev)
-            got = q.local_max(x)
-            want = q.local_max_reference(x)
+        for kind in ("random", "packed", "negative"):
+            values = _ages(np, rng, kind, n, q)
+            want_np = int(values.max())
+            checks = []
+            for offset in range(4):
+                x = _at_offset(torch, values, offset, dev)
+                checks.append((f"pointer entry, offset {offset}",
+                               q.local_max(x), q.local_max_reference(x)))
+            if n <= q.BY_VALUE_MAX:
+                checks.append(("by-value entry",
+                               q.local_max_host(values, torch.empty_like(out)),
+                               q.local_max_host_reference(values)))
             torch.cuda.synchronize()
-            err = abs(int(got[0]) - int(want[0]))
-            if err != 0 or int(got[0]) != int(values.max()):
-                raise AssertionError(
-                    f"local max kernel disagrees at n={n}: kernel {int(got[0])}, "
-                    f"plain {int(want[0])}, numpy {int(values.max())}"
-                )
-            worst = max(worst, err)
-    print(f"kernel phase: quorum local max equals the plain version at n in "
-          f"{list(KERNEL_SIZES)} (random and packed ages)")
+            for what, got, want in checks:
+                err = abs(int(got[0]) - int(want[0]))
+                if err != 0 or int(got[0]) != want_np:
+                    raise AssertionError(
+                        f"local max {what} disagrees at n={n} ({kind}): kernel "
+                        f"{int(got[0])}, plain {int(want[0])}, numpy {want_np}"
+                    )
+                worst = max(worst, err)
+    print(f"kernel phase: quorum local max equals the plain version and numpy "
+          f"at n in {list(KERNEL_SIZES)}: pointer entry at offsets 0-3, "
+          f"by-value entry at n <= {q.BY_VALUE_MAX} (random, packed and "
+          f"all-negative ages)")
+
+    empty = q._kernel("tpurx_empty_launch")
+
+    def floor():
+        if empty(index, q._raw_stream(index)) != 0:
+            raise RuntimeError("empty launch failed")
 
     timings = {}
-    for n, iters in ((1, 2000), (1 << 20, 200)):
-        x = torch.from_numpy(
-            rng.integers(0, 2 ** 31 - 1, size=n, dtype=np.int64).astype(np.int32)
-        ).to(dev)
-        out = torch.empty(1, dtype=torch.int32, device=dev)
-        bound, bound_by = local_max_bound_ms(n)
-        timings[n] = {
-            "ms": time_ms(lambda: q.local_max(x, out), iters, torch),
-            "plain_ms": time_ms(lambda: q.local_max_reference(x), iters, torch),
-            "library_ms": time_ms(lambda: torch.amax(x), iters, torch),
-            "bound_ms": bound,
-            "bound_by": bound_by,
-        }
-        print(f"kernel phase: n={n}: kernel {timings[n]['ms'] * 1e3:.2f} us, "
-              f"plain {timings[n]['plain_ms'] * 1e3:.2f} us, torch.amax "
-              f"{timings[n]['library_ms'] * 1e3:.2f} us, bound "
-              f"{bound * 1e3:.6f} us ({bound_by})")
-    return {"max_abs_err": worst, "timings": timings}
+    for n, iters in ((1, 2000), (1 << 20, 200), (1 << 24, 50)):
+        values = rng.integers(0, 2 ** 31 - 1, size=n, dtype=np.int64).astype(np.int32)
+        x = torch.from_numpy(values).to(dev)
+        fns = {"ms": lambda: q.local_max(x, out),
+               "library_ms": lambda: torch.amax(x),
+               "plain_ms": lambda: q.local_max_reference(x)}
+        if n == 1:
+            fns["by_value_ms"] = lambda: q.local_max_host(values, out)
+            fns["launch_floor_ms"] = floor
+        rec = time_in_turns(fns, iters, 4, torch)
+        rec["bound_ms"], rec["bound_by"] = local_max_bound_ms(n)
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        timings[n] = rec
+        extra = (f", by value {rec['by_value_ms'] * 1e3:.2f} us, empty launch "
+                 f"{rec['launch_floor_ms'] * 1e3:.2f} us" if n == 1 else "")
+        print(f"kernel phase: n={n}: kernel {rec['ms'] * 1e3:.2f} us, "
+              f"plain {rec['plain_ms'] * 1e3:.2f} us, torch.amax "
+              f"{rec['library_ms'] * 1e3:.2f} us{extra}, bound "
+              f"{rec['bound_ms'] * 1e3:.6f} us ({rec['bound_by']}, "
+              f"{100 * rec['bound_share']:.1f}% of it)")
+
+    ages = q.pack_age_device(np.array([1234]), np.array([0]))
+    host = torch.from_numpy(ages)
+    lane = time_in_turns({
+        "old_ms": lambda: q.local_max(
+            host.pin_memory().to(dev, non_blocking=True), out),
+        "new_ms": lambda: q.local_max_host(ages, out),
+        "library_ms": lambda: torch.amax(
+            host.pin_memory().to(dev, non_blocking=True)),
+    }, 1000, 4, torch)
+    print(f"kernel phase: lane route at n_local=1 (host ages to send buffer): "
+          f"pinned copy + kernel {lane['old_ms'] * 1e3:.2f} us, by value "
+          f"{lane['new_ms'] * 1e3:.2f} us, pinned copy + torch.amax "
+          f"{lane['library_ms'] * 1e3:.2f} us")
+    t1, t24 = timings[1], timings[1 << 24]
+    for claim, met in (
+        ("n=1 tensor entry no slower than torch.amax", t1["ms"] <= t1["library_ms"]),
+        ("by-value lane route no slower than pinned copy + kernel",
+         lane["new_ms"] <= lane["old_ms"]),
+        ("n=2^24 at least 50% of the bytes bound", t24["bound_share"] >= 0.5),
+        ("n=2^24 no slower than torch.amax", t24["ms"] <= t24["library_ms"]),
+        ("n=2^20 no slower than torch.amax",
+         timings[1 << 20]["ms"] <= timings[1 << 20]["library_ms"]),
+    ):
+        print(f"kernel phase: {claim}: {'met' if met else 'NOT met'}")
+    return {"max_abs_err": worst, "timings": timings, "lane": lane}
 
 
 def check_phase(torch, tr) -> None:
@@ -219,6 +302,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
 
     q.local_max.launches = 0
+    q.local_max.launches_by_value = 0
+    q.local_max.launches_pointer = 0
     mon.start()
     losses = []
     for i in range(WARMUP_STEPS + TIMED_STEPS):
@@ -231,9 +316,17 @@ def main() -> int:
     torch.cuda.synchronize()
     elapsed = time.monotonic() - t_start
     fq.check_now()
-    train_launches = q.local_max.launches
-    ticks = mon.tick_count
     n_steps = WARMUP_STEPS + TIMED_STEPS
+    # the tick thread counts a tick just before its launch: read when no
+    # tick is between the two (a tick takes microseconds, the interval 10 ms)
+    for _ in range(1000):
+        ticks = mon.tick_count
+        counts = (q.local_max.launches, q.local_max.launches_by_value,
+                  q.local_max.launches_pointer)
+        if ticks == mon.tick_count and counts[0] == n_steps + ticks:
+            break
+        time.sleep(0.0005)
+    train_launches, by_value, pointer = counts
 
     losses = [float(v) for v in losses]
     step_ms = elapsed / TIMED_STEPS * 1e3
@@ -246,16 +339,18 @@ def main() -> int:
           f"{TIMED_STEPS} steps after {WARMUP_STEPS} warm-up; peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     print(f"train phase: local max launches {train_launches} "
-          f"({n_steps} fused steps + {ticks} monitor ticks); fused max age "
+          f"({n_steps} fused steps + {ticks} monitor ticks), {by_value} by "
+          f"value, {pointer} by pointer; fused max age "
           f"{fq.last_max_age_ms} ms, monitor max age {mon.last_max_age} ms")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"loss not finite and falling: {losses}")
     if fused_trips or mon_trips:
         raise AssertionError(f"healthy trips: fused {fused_trips}, monitor {mon_trips}")
-    if ticks < 1 or train_launches < n_steps + ticks:
+    if ticks < 1 or train_launches != n_steps + ticks or by_value != train_launches:
         raise AssertionError(
-            f"local max kernel launched {train_launches} times for {n_steps} "
-            f"fused steps and {ticks} ticks"
+            f"local max kernel launched {train_launches} times ({by_value} by "
+            f"value, {pointer} by pointer) for {n_steps} fused steps and "
+            f"{ticks} ticks"
         )
 
     # -- hang phase: freeze both heartbeats ----------------------------------
@@ -279,25 +374,34 @@ def main() -> int:
               f"after the freeze, age {age:.3f} ms, device {dev}")
 
     t1 = kernel["timings"][1]
-    big = kernel["timings"][1 << 20]
+
+    def at(n):
+        return {k: kernel["timings"][n][k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_share")}
+
     entry = {
         "name": "quorum_local_max",
         "route": "cuda",
         "source": "tpu_resiliency_torch/ops/csrc/quorum_max.cu",
         "replaces": "tpu_resiliency/ops/quorum.py:203",
         "launches": train_launches,
+        "launches_by_value": by_value,
+        "launches_pointer": pointer,
         "max_abs_err": kernel["max_abs_err"],
         "ms": t1["ms"],
         "plain_ms": t1["plain_ms"],
         "bound_ms": t1["bound_ms"],
         "bound_by": t1["bound_by"],
         "library_ms": t1["library_ms"],
+        "by_value_ms": t1["by_value_ms"],
+        "launch_floor_ms": t1["launch_floor_ms"],
         "kernel_us": t1["ms"] * 1e3,
         "library_us": t1["library_ms"] * 1e3,
         "bound_us": t1["bound_ms"] * 1e3,
         "shape": [1],
-        "at_n_1048576": {k: big[k] for k in ("ms", "plain_ms", "library_ms",
-                                             "bound_ms", "bound_by")},
+        "at_n_1048576": at(1 << 20),
+        "at_n_16777216": at(1 << 24),
+        "lane_n_local_1": kernel["lane"],
     }
     import torch.distributed as dist
 

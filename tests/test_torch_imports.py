@@ -157,9 +157,13 @@ def test_build_output_is_gitignored():
 def test_kernel_source_has_plain_c_entry_point():
     with open(os.path.join(cuda_build.CSRC_DIR, "quorum_max.cu")) as f:
         src = f.read()
-    assert 'extern "C" int tpurx_local_max_i32(' in src
+    for entry in ("tpurx_local_max_i32(", "tpurx_local_max_i32_args(",
+                  "tpurx_empty_launch("):
+        assert f'extern "C" int {entry}' in src
     assert "cudaGetLastError" in src
-    assert "atomicMax(" not in src  # deterministic: no atomics
+    # an integer atomic max is order-independent; blocks combine with it
+    # only after a grid barrier has set out[0] to INT_MIN
+    assert "cudaLaunchCooperativeKernel(" in src and "this_grid().sync()" in src
 
 
 # -- shared vocabulary with the JAX package ----------------------------------

@@ -71,7 +71,11 @@ for name, now, stamps, identify in cases:
     out[name] = fn(np.array([stamps[rank]], dtype=np.int64))
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "tpu_resiliency" or m.startswith("tpu_resiliency.")]
-print(json.dumps({"rank": rank, "out": out, "foreign_modules": bad}))
+print(json.dumps({"rank": rank, "out": out, "foreign_modules": bad}), flush=True)
+# tear the groups down before exit: left to interpreter shutdown, a gloo
+# group's threads are sometimes destroyed while joinable (abort, rc -6)
+import torch.distributed as dist
+dist.destroy_process_group()
 """
 
 

@@ -16,9 +16,12 @@ import numpy as np
 import pytest
 import torch
 
-import tpu_resiliency.ops.quorum as jq
 import tpu_resiliency_torch.ops.quorum as tq
 from tpu_resiliency_torch.parallel import init_distributed, make_mesh
+
+# the reference; absent where only the port is installed (the card's machine
+# runs just the ``cuda``-marked tests of tests/test_torch_quorum_kernel.py)
+jq = pytest.importorskip("tpu_resiliency.ops.quorum")
 
 
 @pytest.fixture(scope="module")

@@ -21,14 +21,18 @@ Stamp contract (v3, unchanged from the JAX package; see
 
 Layers:
 
-- :func:`local_max` — the local reduce.  On a CUDA tensor it launches the
-  hand-written kernel ``csrc/quorum_max.cu`` (the counterpart of the Pallas
-  kernel of ``make_local_max``); on a CPU tensor it takes the plain version
-  :func:`local_max_reference`.  Nothing else chooses between them.
+- :func:`local_max_host` and :func:`local_max` — the local reduce, the
+  hand-written kernels of ``csrc/quorum_max.cu`` (the counterpart of the
+  Pallas kernel of ``make_local_max``).  ``local_max_host`` takes up to
+  :data:`BY_VALUE_MAX` ages from the host in the launch itself;
+  ``local_max`` takes a tensor already on the card, of any size.  For CPU
+  tensors each takes its plain version; nothing else chooses between
+  kernel and plain version.
 - :func:`make_quorum_fn` — per-rank ages → job-wide max age: the local max
   kernel writes the all-reduce send buffer and one ``all_reduce(MAX)`` over
-  the mesh axis follows.  Identify mode packs the device index into the
-  same int32 (:func:`pack_age_device`).
+  the mesh axis follows (:func:`local_max_route` picks the entry).
+  Identify mode packs the device index into the same int32
+  (:func:`pack_age_device`).
 - :class:`FusedStepQuorum` — the same packed reduce issued right after
   every training step on the step's stream, read back one step late.
 - :class:`StampTripwire` — event-driven staleness watcher (event mode).
@@ -167,23 +171,71 @@ _TRIPWIRE_WAITS = counter(
 )
 
 
-# -- the local max kernel ---------------------------------------------------
+# -- the local max kernels ---------------------------------------------------
 
 _KERNEL_SOURCE = "quorum_max.cu"
-_kernel_fn = None
+_kernels: dict = {}
+
+BY_VALUE_MAX = 32       # ages that travel in the launch's parameters
+_THREADS = 256          # threads of one block of the pointer kernel
+PER_BLOCK = _THREADS * 4 * 4  # elements one block reads per grid pass
+_sm_counts: dict = {}   # device index -> SM count
 
 
-def _kernel():
-    """The ctypes entry point of ``csrc/quorum_max.cu``, built on first use
-    (never at import: the CPU tests import this module without nvcc)."""
-    global _kernel_fn
-    if _kernel_fn is None:
-        fn = load_kernel_library(_KERNEL_SOURCE).tpurx_local_max_i32
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                       ctypes.c_void_p]
+def _kernel(name: str):
+    """The ctypes entry point ``name`` of ``csrc/quorum_max.cu``, built on
+    first use (never at import: the CPU tests import this module without
+    nvcc)."""
+    fn = _kernels.get(name)
+    if fn is None:
+        fn = getattr(load_kernel_library(_KERNEL_SOURCE), name)
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+        fn.argtypes = {
+            "tpurx_local_max_i32": [vp, i64, i64, i64, ctypes.c_int, vp,
+                                    ctypes.c_int, vp],
+            # host ages as bytes: ctypes hands over the buffer's address
+            "tpurx_local_max_i32_args": [ctypes.c_char_p, i32, vp,
+                                         ctypes.c_int, vp],
+            "tpurx_empty_launch": [ctypes.c_int, vp],
+        }[name]
         fn.restype = ctypes.c_int
-        _kernel_fn = fn
-    return _kernel_fn
+        _kernels[name] = fn
+    return fn
+
+
+def _raw_stream(device_index: int) -> int:
+    """The current CUDA stream of a device as a raw handle, without building
+    a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+def _sm_count(device_index: int) -> int:
+    count = _sm_counts.get(device_index)
+    if count is None:
+        count = _sm_counts[device_index] = torch.cuda.get_device_properties(
+            device_index).multi_processor_count
+    return count
+
+
+def local_max_route(n: int) -> str:
+    """Which entry reduces ``n`` host ages: ``"by_value"`` (they travel in
+    the launch, :func:`local_max_host`) for ``n <= BY_VALUE_MAX``, else
+    ``"pointer"`` (copied to the card, :func:`local_max`)."""
+    return "by_value" if n <= BY_VALUE_MAX else "pointer"
+
+
+def local_max_plan(n: int, data_ptr: int, sm_count: int) -> tuple:
+    """Launch plan of the pointer kernel for ``n`` int32 values at address
+    ``data_ptr``: ``(grid, head, nvec)``.  The kernel reads ``head`` scalars
+    up to the first 16-byte boundary, ``nvec`` 16-byte vectors, then the
+    ``n - head - 4 * nvec < 4`` scalars of the tail.  The grid is
+    ``min(ceil(n / PER_BLOCK), 2 * sm_count)`` blocks (``sm_count`` is read
+    only when ``n > PER_BLOCK``); more than one block is a cooperative
+    launch, so every block must be resident at once."""
+    head = min(n, -(data_ptr >> 2) % 4)
+    nvec = (n - head) // 4
+    grid = 1 if n <= PER_BLOCK else min(-(-n // PER_BLOCK), 2 * sm_count)
+    return grid, head, nvec
 
 
 def local_max_reference(x: torch.Tensor) -> torch.Tensor:
@@ -191,46 +243,104 @@ def local_max_reference(x: torch.Tensor) -> torch.Tensor:
     return torch.amax(x).reshape(1)
 
 
+def local_max_host_reference(ages: np.ndarray) -> torch.Tensor:
+    """The plain version of :func:`local_max_host`: ``int32[1]``."""
+    return torch.from_numpy(ages).amax().reshape(1)
+
+
+def _check_out(out: torch.Tensor, device: torch.device) -> None:
+    if out.device != device or out.dtype != torch.int32 or out.numel() < 1:
+        raise ValueError(
+            f"out must be a non-empty int32 tensor on {device}, got "
+            f"{out.dtype} on {out.device}"
+        )
+
+
 def local_max(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Max of the 1-D int32 tensor ``x`` into ``out`` (``int32[1]``, made
     when not given); returns ``out``.
 
-    On a CUDA tensor this launches the kernel on the current stream and
-    counts the launch in ``local_max.launches``; a launch that CUDA refuses
-    raises.  On a CPU tensor it takes :func:`local_max_reference`.  The
-    kernel computes ``max(x)``; the Pallas kernel it replaces computes
-    ``max(max(x), 0)`` over its zero padding, the same value for the
-    non-negative ages and packed ages the quorum feeds it."""
+    On a CUDA tensor this launches the pointer kernel on the current stream
+    (one launch, planned by :func:`local_max_plan`) and counts it in
+    ``local_max.launches`` and ``local_max.launches_pointer``; a launch
+    that CUDA refuses raises.  On a CPU tensor it takes
+    :func:`local_max_reference`.  The kernel computes
+    ``max(x)``; the Pallas kernel it replaces computes ``max(max(x), 0)``
+    over its zero padding, the same value for the non-negative ages and
+    packed ages the quorum feeds it."""
     if x.dtype != torch.int32:
         raise TypeError(f"local_max takes int32, got {x.dtype}")
-    if x.dim() != 1 or x.numel() == 0:
-        raise ValueError(f"local_max takes a non-empty 1-D tensor, got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("local_max takes a contiguous tensor")
-    if out is None:
-        out = torch.empty(1, dtype=torch.int32, device=x.device)
-    elif (out.device != x.device or out.dtype != torch.int32
-          or out.numel() < 1 or not out.is_contiguous()):
+    if x.ndim != 1 or not x.is_contiguous():
         raise ValueError(
-            f"out must be a contiguous int32 tensor on {x.device}, got "
-            f"{out.dtype} on {out.device}"
-        )
-    if x.device.type == "cpu":
-        out[:1].copy_(local_max_reference(x))
+            f"local_max takes a contiguous 1-D tensor, got {tuple(x.shape)}")
+    n = x.numel()
+    if n == 0:
+        raise ValueError("local_max takes a non-empty tensor")
+    if x.is_cuda:
+        index = x.get_device()
+        if out is None:
+            out = torch.empty(1, dtype=torch.int32, device=x.device)
+        elif not (out.is_cuda and out.get_device() == index
+                  and out.dtype == torch.int32 and out.numel() >= 1):
+            _check_out(out, x.device)
+        ptr = x.data_ptr()
+        grid, head, nvec = local_max_plan(
+            n, ptr, _sm_count(index) if n > PER_BLOCK else 0)
+        rc = _kernel("tpurx_local_max_i32")(
+            ptr, n, head, nvec, grid, out.data_ptr(), index, _raw_stream(index))
+        if rc != 0:
+            raise RuntimeError(f"quorum local max launch failed: CUDA error {rc}")
+        local_max.launches += 1
+        local_max.launches_pointer += 1
         return out
-    if x.device.type != "cuda":
+    if x.device.type != "cpu":
         raise ValueError(f"local_max runs on CUDA or CPU tensors, not {x.device}")
-    fn = _kernel()
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), x.numel(), out.data_ptr(),
-                torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"quorum local max launch failed: CUDA error {rc}")
-    local_max.launches += 1
+    if out is None:
+        out = torch.empty(1, dtype=torch.int32)
+    else:
+        _check_out(out, x.device)
+    out[:1].copy_(local_max_reference(x))
     return out
 
 
-local_max.launches = 0
+local_max.launches = 0           # both routes
+local_max.launches_by_value = 0  # local_max_host
+local_max.launches_pointer = 0   # local_max
+
+
+def local_max_host(ages: np.ndarray, out: torch.Tensor) -> torch.Tensor:
+    """Max of the 1-D int32 host array ``ages`` (``1 <= n <=
+    BY_VALUE_MAX``) into ``out[0]``; returns ``out``.
+
+    For a CUDA ``out`` the values travel in the kernel's launch parameters,
+    so this is the one launch between ages on the host and the all-reduce
+    send buffer: no pinned staging, no host-to-device copy, and ``ages``
+    may change as soon as the call returns.  The call is counted in
+    ``local_max.launches`` and ``local_max.launches_by_value``.  For a CPU
+    ``out`` it takes :func:`local_max_host_reference`."""
+    if not isinstance(ages, np.ndarray) or ages.dtype != np.int32:
+        raise TypeError(f"local_max_host takes an int32 numpy array, got {ages!r}")
+    n = ages.size
+    if ages.ndim != 1 or not 1 <= n <= BY_VALUE_MAX:
+        raise ValueError(
+            f"local_max_host takes 1..{BY_VALUE_MAX} ages in a 1-D array, got "
+            f"shape {ages.shape}")
+    if out.is_cuda:
+        if out.dtype != torch.int32 or out.numel() < 1:
+            _check_out(out, out.device)
+        index = out.get_device()
+        rc = _kernel("tpurx_local_max_i32_args")(
+            ages.tobytes(), n, out.data_ptr(), index, _raw_stream(index))
+        if rc != 0:
+            raise RuntimeError(f"quorum local max launch failed: CUDA error {rc}")
+        local_max.launches += 1
+        local_max.launches_by_value += 1
+        return out
+    if out.device.type != "cpu":
+        raise ValueError(f"local_max_host writes CUDA or CPU tensors, not {out.device}")
+    _check_out(out, out.device)
+    out[:1].copy_(local_max_host_reference(ages))
+    return out
 
 
 def make_local_max() -> Callable:
@@ -306,16 +416,24 @@ class _QuorumLane:
         # pinned + non_blocking: the copy never waits for queued work
         return host.pin_memory().to(self.device, non_blocking=True)
 
-    def reduce(self, x: torch.Tensor) -> _Readback:
-        out = local_max(x)
+    def reduce(self, ages: np.ndarray) -> _Readback:
+        """Host ages → local max → all-reduce MAX, on the current stream.
+        Up to ``BY_VALUE_MAX`` ages ride the kernel's launch (one launch
+        before the all-reduce); more are copied to the card first."""
+        ages = np.ascontiguousarray(ages, dtype=np.int32)
+        if local_max_route(ages.size) == "by_value":
+            out = local_max_host(
+                ages, torch.empty(1, dtype=torch.int32, device=self.device))
+        else:
+            out = local_max(self.to_device(ages))
         dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
         return _Readback(out)
 
     def run(self, ages: np.ndarray) -> _Readback:
         if self.stream is None:
-            return self.reduce(self.to_device(ages))
+            return self.reduce(ages)
         with torch.cuda.stream(self.stream):
-            return self.reduce(self.to_device(ages))
+            return self.reduce(ages)
 
 
 def _axis_of(mesh, axis_name: Optional[str]) -> str:
@@ -477,9 +595,9 @@ class FusedStepQuorum:
     :class:`QuorumMonitor` remains the backstop.
 
     ``fuse(step_fn)`` returns a step that takes the packed ages on the host
-    *before* it dispatches ``step_fn``, copies them to the card, runs
-    ``step_fn``, then enqueues the local max kernel and the all-reduce MAX
-    on the step's stream and copies the result ``non_blocking`` into pinned
+    *before* it dispatches ``step_fn``, runs ``step_fn``, then enqueues the
+    local max kernel (the ages ride its launch) and the all-reduce MAX on
+    the step's stream and copies the result ``non_blocking`` into pinned
     host memory behind a CUDA event.  Each call materializes the PREVIOUS
     step's result by waiting on that event (one-step result lag, bounded by
     step time): nothing syncs the step just enqueued, so the host stays one
@@ -548,7 +666,7 @@ class FusedStepQuorum:
         one-step-lagged check, and trip firing are internal."""
 
         def run(*args, **kwargs):
-            ages = self.device_ages()
+            ages = self.local_ages()  # sampled before the step is dispatched
             out = step_fn(*args, **kwargs)
             packed = self._lane.reduce(ages)
             previous, self._pending = self._pending, packed
