@@ -2,7 +2,8 @@
 
 - Every port module imports in a fresh interpreter without pulling in JAX or
   the JAX package (this test process has both loaded by ``conftest.py``, so
-  the check runs in a subprocess).  The port's own name starts with
+  the check runs in a subprocess), and the checkpoint writer process's
+  import chain loads without torch.  The port's own name starts with
   ``tpu_resiliency``, so the check is for the exact name ``tpu_resiliency``
   and the ``tpu_resiliency.`` prefix.
 - Entry points run on the CUDA card by default and raise without one; they
@@ -62,6 +63,46 @@ def test_port_imports_without_jax_or_the_jax_package():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+    # The checkpoint writer process runs ``python -m ...async_ckpt.
+    # worker_main``: its import chain (the package ``__init__`` files
+    # included) holds no torch either.  The checkpointer, which imports
+    # torch, loads from the package on first use.
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_TORCH_SCRIPT, REPO, json.dumps(_WORKER_CHAIN)],
+        capture_output=True, text=True, timeout=120, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    import tpu_resiliency_torch.checkpointing as ckpt
+
+    assert ckpt.AsyncCheckpointer.__module__.endswith("async_ckpt.checkpointer")
+    with pytest.raises(AttributeError):
+        ckpt.no_such_name  # noqa: B018
+
+
+_WORKER_CHAIN = [
+    "tpu_resiliency_torch.checkpointing",
+    "tpu_resiliency_torch.checkpointing.async_ckpt.worker_main",
+    "tpu_resiliency_torch.checkpointing.async_ckpt.writer",
+    "tpu_resiliency_torch.checkpointing.async_ckpt.core",
+    "tpu_resiliency_torch.checkpointing.async_ckpt.resident",
+    "tpu_resiliency_torch.checkpointing.integrity",
+    "tpu_resiliency_torch.checkpointing.coverage",
+    "tpu_resiliency_torch.utils.dtypes",
+    "tpu_resiliency_torch.utils.shm",
+]
+
+_NO_TORCH_SCRIPT = r"""
+import importlib, json, sys
+sys.path.insert(0, sys.argv[1])
+for mod in json.loads(sys.argv[2]):
+    importlib.import_module(mod)
+print(json.dumps(sorted(m for m in sys.modules if m == "torch"
+                        or m.startswith("torch.") or m == "jax"
+                        or m.startswith("jax.") or m == "tpu_resiliency"
+                        or m.startswith("tpu_resiliency."))))
+"""
 
 
 def test_port_sources_name_no_jax_module():
@@ -165,6 +206,14 @@ def test_kernel_source_has_plain_c_entry_point():
     # only after a grid barrier has set out[0] to INT_MIN
     assert "cudaLaunchCooperativeKernel(" in src and "this_grid().sync()" in src
 
+    with open(os.path.join(cuda_build.CSRC_DIR, "chunk_fingerprint.cu")) as f:
+        src = f.read()
+    assert 'extern "C" int tpurx_chunk_fingerprint(' in src
+    assert "cudaGetLastError" in src and "cudaMemsetAsync" in src
+    # one unsigned atomicAdd per block and sum: order-independent mod 2^32
+    assert src.count("atomicAdd(") == 2
+    assert "torch" not in src
+
 
 # -- shared vocabulary with the JAX package ----------------------------------
 
@@ -183,22 +232,28 @@ def test_knobs_match_the_jax_registry():
 
 
 def test_metric_names_are_the_jax_package_names():
+    import tpu_resiliency.checkpointing.async_ckpt.checkpointer  # noqa: F401
     import tpu_resiliency.parallel.collectives  # noqa: F401
     import tpu_resiliency.ops.quorum  # noqa: F401
+    import tpu_resiliency_torch.checkpointing.async_ckpt.checkpointer  # noqa: F401
     from tpu_resiliency.telemetry import get_registry as jax_registry
     from tpu_resiliency_torch.telemetry import get_registry
 
     port = set(get_registry().names())
-    assert {"tpurx_quorum_detect_ns", "tpurx_collective_latency_ns"} <= port
+    assert {"tpurx_quorum_detect_ns", "tpurx_collective_latency_ns",
+            "tpurx_ckpt_saves_total", "tpurx_ckpt_d2h_skipped_bytes_total",
+            "tpurx_ckpt_verify_total"} <= port
     assert port <= set(jax_registry().names())
 
 
 def test_flight_events_are_the_jax_package_events():
+    import tpu_resiliency.checkpointing.async_ckpt.core  # noqa: F401
     import tpu_resiliency.parallel.collectives  # noqa: F401
+    import tpu_resiliency_torch.checkpointing.async_ckpt.core  # noqa: F401
     from tpu_resiliency.telemetry import flight as jflight
     from tpu_resiliency_torch.telemetry import flight as tflight
 
     names = tflight.event_names()
-    assert "collective.dispatch" in names
+    assert {"collective.dispatch", "ckpt.drain_begin", "ckpt.drain_end"} <= set(names)
     for name in names:
         assert tflight.event_fields(name) == jflight.event_fields(name), name

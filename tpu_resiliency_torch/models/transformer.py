@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.tree import leaves as tree_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -256,6 +257,52 @@ def make_train_step(cfg: TransformerConfig, lr: float = 1e-3):
         return params, opt, loss.detach()
 
     return step
+
+
+def _nest(params: Transformer, leaves: List[torch.Tensor]) -> Dict[str, Any]:
+    """``leaves`` (in ``params.parameters()`` order) as the JAX parameter
+    tree: ``embed``, ``pos``, ``layers[i].{wq,...}``, ``ln_f_scale``."""
+    tree: Dict[str, Any] = {"layers": [{} for _ in params.layers]}
+    for (name, _), leaf in zip(params.named_parameters(), leaves):
+        parts = name.split(".")
+        if parts[0] == "layers":
+            tree["layers"][int(parts[1])][parts[2]] = leaf
+        else:
+            tree[parts[0]] = leaf
+    return tree
+
+
+def state_tree(params: Transformer, opt: Dict[str, Any]) -> Dict[str, Any]:
+    """The trainer's state as the JAX package's train-state tree:
+    ``{"params": {embed, pos, layers[i].{wq,...}, ln_f_scale}, "opt": {mu,
+    nu, count[, master]}}``, with ``mu``, ``nu`` and ``master`` shaped like
+    ``params``.  The leaves are the live tensors (parameters detached, which
+    shares their storage), not copies: a checkpoint snapshot reads them
+    where the step updates them.  The layout needs no transposes, as in
+    :func:`params_from_jax`."""
+    opt_tree: Dict[str, Any] = {
+        "mu": _nest(params, opt["mu"]),
+        "nu": _nest(params, opt["nu"]),
+        "count": opt["count"],
+    }
+    if "master" in opt:
+        opt_tree["master"] = _nest(params, opt["master"])
+    return {"params": _nest(params, [p.detach() for p in params.parameters()]),
+            "opt": opt_tree}
+
+
+def load_state_tree(params: Transformer, opt: Dict[str, Any],
+                    tree: Dict[str, Any]) -> None:
+    """Copy a restored :func:`state_tree`-shaped ``tree`` into the module
+    and the optimizer state, in place (leaf counts and shapes must match)."""
+    dsts, srcs = tree_leaves(state_tree(params, opt)), tree_leaves(tree)
+    if len(dsts) != len(srcs):
+        raise ValueError(f"state has {len(dsts)} leaves, tree has {len(srcs)}")
+    with torch.no_grad():
+        for dst, src in zip(dsts, srcs):
+            if dst.shape != src.shape:
+                raise ValueError(f"shape {tuple(src.shape)} != {tuple(dst.shape)}")
+            dst.copy_(src)
 
 
 def make_batch(cfg: TransformerConfig, batch_size: int, seq: int,

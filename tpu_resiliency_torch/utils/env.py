@@ -115,6 +115,10 @@ INFRA_RANK = Knob(
     "TPURX_INFRA_RANK", int, None,
     "Infrastructure-assigned rank used for log prefixes before the "
     "launcher assigns TPURX_RANK.", group="identity")
+CYCLE = Knob(
+    "TPURX_CYCLE", int, 0,
+    "Restart-cycle counter, bumped by the launcher on every restart; "
+    "namespaces store keys and checkpoint rounds.", group="identity")
 
 # -- control-plane store ----------------------------------------------------
 STORE_ADDR = Knob(
@@ -193,3 +197,64 @@ COLL_DEGRADE = Knob(
     "Ordered degrade-ladder composition for wrapped collectives: "
     "comma-separated rungs from {retry, relayout, shrink} (empty string "
     "= fail fast on the first CollectiveTimeout).", group="collectives")
+
+# -- checkpointing ----------------------------------------------------------
+CKPT_CHUNK_BYTES = Knob(
+    "TPURX_CKPT_CHUNK_BYTES", int, 16 << 20,
+    "Chunk size of the multi-threaded checkpoint drain/restore engines.",
+    group="checkpoint")
+CKPT_RESTORE_THREADS = Knob(
+    "TPURX_CKPT_RESTORE_THREADS", int, 0,
+    "Restore read-engine thread count (0 = same sizing as the write "
+    "engine).", group="checkpoint")
+CKPT_DIGEST = Knob(
+    "TPURX_CKPT_DIGEST", bool, True,
+    "Compute per-chunk crc32 spans + composed shard digests during the "
+    "drain.", group="checkpoint")
+CKPT_DIRECT_IO = Knob(
+    "TPURX_CKPT_DIRECT_IO", bool, True,
+    "Use O_DIRECT for checkpoint reads/writes (buffered fallback on "
+    "EINVAL).", group="checkpoint")
+CKPT_STAGER_NICE = Knob(
+    "TPURX_CKPT_STAGER_NICE", int, 10,
+    "nice() increment applied to the async-save stager thread.",
+    group="checkpoint")
+CKPT_WORKER_NICE = Knob(
+    "TPURX_CKPT_WORKER_NICE", int, 10,
+    "nice() increment applied to the checkpoint writer process.",
+    group="checkpoint")
+CKPT_WORKER_IONICE = Knob(
+    "TPURX_CKPT_WORKER_IONICE", int, 3,
+    "ionice class for the checkpoint writer process (3 = idle).",
+    group="checkpoint")
+CKPT_RESIDENT = Knob(
+    "TPURX_CKPT_RESIDENT", bool, True,
+    "Keep the last committed checkpoint generation memory-resident (the "
+    "staging shm pool / replica blobs) as the warm restore source.",
+    group="checkpoint")
+CKPT_DELTA = Knob(
+    "TPURX_CKPT_DELTA", bool, False,
+    "Delta saves: skip draining chunks whose crc32 matches the previous "
+    "committed index (requires digests; per-save delta= overrides; the "
+    "index records per-chunk provenance so restores cover every byte).",
+    group="checkpoint")
+CKPT_DEVICE_DIGEST = Knob(
+    "TPURX_CKPT_DEVICE_DIGEST", bool, False,
+    "Compute per-chunk change fingerprints on-device before staging: delta "
+    "saves skip the D2H transfer (not just the disk write) for shards whose "
+    "fingerprints all match the committed baseline, and every transferred "
+    "chunk's device verdict is cross-checked against the host crc32 "
+    "(disagreement fails the save as a detected corruption).",
+    group="checkpoint")
+CKPT_STAGE_BUFFERS = Knob(
+    "TPURX_CKPT_STAGE_BUFFERS", int, 2,
+    "Device-side snapshot slots of the async-save ring (snapshot stage "
+    "mode): with >=2, the next step's snapshot reuses a slot whose staging "
+    "already drained (donated buffers) so compute overlaps the previous "
+    "slice's D2H; 1 restores the single-copy behavior.",
+    group="checkpoint")
+CKPT_INTERVAL_S = Knob(
+    "TPURX_CKPT_INTERVAL_S", float, None,
+    "Target seconds between async checkpoint saves; SaveScheduler reads "
+    "it per step, so policy runtime overrides retune cadence mid-run.",
+    group="checkpoint")
