@@ -73,7 +73,29 @@ Phases, each of which raises on failure (the run then exits non-zero):
    time, restore time, restart latency (fault to the first finished step
    of the next iteration), steps lost; and the launches of kernels 1 and 2
    in the wrapped run;
-9. wedge — a child process (``python3 chip_smoke.py --wedge-child``, exec'd,
+9. mesh — the dp x tp sharded step (``mesh=``) and its sharded save.
+   (a) A world of one over NCCL on a ``("data", "model")`` mesh of (1, 1):
+   the unsharded route and the mesh route each train 3 + 10 steps from the
+   seed-0 state with deterministic algorithms on, the mesh route under
+   ``FusedStepQuorum(identify=True)``; the losses must be equal bit for bit
+   and the local max must launch once per fused step.  Then one save of the
+   mesh route's state (``DTensor`` leaves) with ``delta=True,
+   device_digest=True``, the fingerprint launched once per owned shard and
+   the restore compared bit for bit with a device copy taken at the save;
+   then both routes' step times, in turns.  (b) Four processes share the
+   card over gloo on a (2, 2) mesh: each is exec'd as ``python3
+   chip_smoke.py --mesh-child <rank> <world> <url>`` (the kernels were built
+   above), trains 3 steps from the same seed-0 weights (its box of each)
+   and saves once, committed across the four over the port's store server
+   run here.  Their losses must be finite, fall, and agree with (a)'s first
+   three within 2e-2; the owned shard entries must be the JAX rule's (the
+   "data" = 0 ranks own every box of their "model" index, rank 0 the
+   replicated leaves, ranks 2 and 3 nothing), each rank must launch the
+   fingerprint once per owned shard, and every rank must restore its boxes
+   bit for bit.  A child that fails, or does not finish in 300 s, fails the
+   phase.  The gloo times are host-staged collectives on one card, not a
+   tensor-parallel speed;
+10. wedge — a child process (``python3 chip_smoke.py --wedge-child``, exec'd,
    not forked) trains a small model under the port's ``Wrapper`` with the
    monitor process on (soft timeout 3 s, hard 6 s), then fires
    ``Fault.DEVICE_HANG``: the spin kernel (``ops/csrc/device_spin.cu``)
@@ -139,6 +161,18 @@ WRAP_FAULTS = {0: ("exception", 6), 1: ("stall", 11), 2: ("quorum_freeze", 17)}
 WRAP_SOFT_TIMEOUT_S = 3.0
 WRAP_STALL_SLEEP_S = 4.0      # one C-level sleep of the stall: > soft timeout
 WRAP_QUORUM_BUDGET_MS = 500.0
+# mesh phase: (b)'s mesh of four gloo processes on the one card, the steps
+# each trains, and how far its losses may sit from (a)'s first ones.  (b)
+# splits each bf16 matmul of the step over two "model" ranks and sums the
+# halves after each is rounded to bf16 (one more rounding, 2^-9 relative,
+# per summed activation), and averages the loss over two "data" ranks; the
+# loss of the random-init flagship is about 10.4, so these move it in its
+# third or fourth digit, and 2e-2 (0.2% of it) bounds that with room
+MESH_SHAPE = (2, 2)
+MESH_STEPS = 3
+MESH_LOSS_TOL = 2e-2
+MESH_CHILD_TIMEOUT_S = 300.0
+MESH_TIME_ROUNDS, MESH_TIME_STEPS = 6, 5
 # wedge phase: the child's monitor-process timeouts
 WEDGE_SOFT_TIMEOUT_S = 3.0
 WEDGE_HARD_TIMEOUT_S = 6.0
@@ -769,8 +803,354 @@ def wrap_phase(torch, cfg, batch_size: int, seq: int, device=None) -> dict:
             "wall_s": wall_s}
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _local_copies(torch, tree_leaves, tree) -> list:
+    """A device copy of every leaf's local data (a DTensor's local shard)."""
+    from torch.distributed.tensor import DTensor
+
+    return [(t.to_local() if isinstance(t, DTensor) else t).clone()
+            for t in tree_leaves(tree)]
+
+
+def _restored_bit_for_bit(torch, tree_leaves, out, copies) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    got = [t.to_local() if isinstance(t, DTensor) else t for t in tree_leaves(out)]
+    return len(got) == len(copies) and all(
+        x.device == y.device and x.dtype == y.dtype and _same_bytes(torch, x, y)
+        for x, y in zip(got, copies))
+
+
+def mesh_expected_owned(cfg, n_opt_groups: int) -> list:
+    """Owned shard entries per rank of a (2, 2) save of the train state by
+    the JAX package's rule: one owner per distinct box, the lowest flat
+    index.  The split leaves (embed and six matrices per layer, in each of
+    params, mu, nu and master) have one box per "model" index, owned by the
+    "data" = 0 ranks 0 and 1; the replicated ones (pos and the norm scales)
+    and the scalar count are rank 0's; ranks 2 and 3 own nothing."""
+    split = (1 + 6 * cfg.n_layers) * n_opt_groups
+    replicated = (2 + 2 * cfg.n_layers) * n_opt_groups + 1
+    return [split + replicated, split, 0, 0]
+
+
+def mesh_phase(torch, cfg, batch_size: int, seq: int, device=None) -> dict:
+    """Phase 9: the dp x tp sharded step and its sharded save.  (a) a world
+    of one over NCCL on a (1, 1) mesh; (b) four gloo processes sharing the
+    card on a (2, 2) mesh.  ``device="cpu"`` rehearses both on the CPU
+    (gloo throughout; the launch claims are waived off the card)."""
+    a = mesh_world_one(torch, cfg, batch_size, seq, device)
+    b = mesh_gloo_four(torch, cfg, batch_size, seq, a["losses"][:MESH_STEPS], device)
+    return {"a": a, "b": b}
+
+
+def mesh_world_one(torch, cfg, batch_size: int, seq: int, device=None) -> dict:
+    """Part (a): the sharded route on a (1, 1) mesh equals the unsharded
+    route bit for bit, under the fused quorum lane; then one sharded save
+    and restore."""
+    import torch.distributed as dist
+
+    from tpu_resiliency_torch.checkpointing.async_ckpt import checkpointer as ckpt_mod
+    from tpu_resiliency_torch.checkpointing.async_ckpt import device_digest as dd
+    from tpu_resiliency_torch.models import transformer as tr
+    from tpu_resiliency_torch.ops import quorum as q
+    from tpu_resiliency_torch.parallel import distributed as dist_mod
+    from tpu_resiliency_torch.parallel import init_distributed, make_mesh
+    from tpu_resiliency_torch.utils.tree import leaves
+
+    on_card = device is None
+    dev = (torch.device("cuda", torch.cuda.current_device()) if on_card
+           else torch.device("cpu"))
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    init_distributed(device=device)
+    mesh = make_mesh(("data", "model"), (1, 1), device=device)
+    root = tempfile.mkdtemp(prefix="tpurx_mesh_")
+    try:
+        routes = {}
+        for name, m in (("unsharded", None), ("mesh", mesh)):
+            params = tr.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                    device=device, mesh=m)
+            routes[name] = {
+                "params": params, "opt": tr.init_opt_state(params),
+                "batch": tr.make_batch(cfg, batch_size, seq, seed=0,
+                                       device=device, mesh=m),
+                "step": tr.make_train_step(cfg, lr=1e-3, mesh=m),
+            }
+        trips = []
+        fq = q.FusedStepQuorum(mesh, budget_ms=1000.0, identify=True, device=device,
+                               on_stale=lambda age, d: trips.append((age, d)))
+        routes["mesh"]["fused"] = fq.fuse(routes["mesh"]["step"])
+
+        def run(name, n, fused=True):
+            r = routes[name]
+            step = r.get("fused", r["step"]) if fused else r["step"]
+            out = []
+            for _ in range(n):
+                if name == "mesh":
+                    fq.beat()
+                r["params"], r["opt"], loss = step(r["params"], r["opt"], r["batch"])
+                out.append(loss)
+            return [float(v) for v in out]
+
+        n_steps = WARMUP_STEPS + TIMED_STEPS
+        plain = run("unsharded", n_steps)
+        q.local_max.launches = 0
+        q.local_max.launches_by_value = 0
+        q.local_max.launches_pointer = 0
+        losses = run("mesh", n_steps)
+        sync()
+        fq.check_now()
+        lm_launches = q.local_max.launches
+        print(f"mesh phase (a): {n_steps} steps on the (1, 1) mesh: losses "
+              f"{[round(v, 4) for v in losses]}; unsharded route "
+              f"{[round(v, 4) for v in plain]}; local max launches {lm_launches}")
+
+        # one sharded save of the train state, restored bit for bit
+        r = routes["mesh"]
+        tree = tr.state_tree(r["params"], r["opt"])
+        copies = _local_copies(torch, leaves, tree)
+        ck = ckpt_mod.AsyncCheckpointer(delta=True, digest=True, device_digest=True)
+        try:
+            dd.shard_fingerprints.launches = 0
+            t0 = time.perf_counter()
+            ck.async_save(tree, os.path.join(root, "a"), {"iteration": 0})
+            call_ms = (time.perf_counter() - t0) * 1e3
+            ck.finalize_all()
+            fp_launches = dd.shard_fingerprints.launches
+            save_ms = (time.perf_counter() - t0) * 1e3
+            owned = ck.last_stage_stats["shards_owned"]
+        finally:
+            ck.close()
+        t0 = time.perf_counter()
+        out = ckpt_mod.load_checkpoint(os.path.join(root, "a"), tree, resident=False)
+        sync()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        restored = _restored_bit_for_bit(torch, leaves, out, copies)
+        n_leaves = len(copies)
+        print(f"mesh phase (a): save of {n_leaves} DTensor and plain leaves: "
+              f"async_save {call_ms:.2f} ms, committed after {save_ms:.1f} ms, "
+              f"{owned} owned shards, fingerprint launches {fp_launches}; "
+              f"restored in {restore_ms:.1f} ms, bit for bit: {restored}")
+
+        # step time, in turns: the mesh step under the fused lane and bare,
+        # and the unsharded step (bare)
+        turns = {"mesh_fused": ("mesh", True), "mesh": ("mesh", False),
+                 "unsharded": ("unsharded", False)}
+        samples = {k: [] for k in turns}
+        for rnd in range(MESH_TIME_ROUNDS):
+            for key in (list(turns) if rnd % 2 == 0 else list(turns)[::-1]):
+                sync()
+                t0 = time.perf_counter()
+                run(*turns[key][:1], MESH_TIME_STEPS, fused=turns[key][1])
+                sync()
+                samples[key].append((time.perf_counter() - t0) / MESH_TIME_STEPS * 1e3)
+        step_ms = {k: sorted(v)[len(v) // 2] for k, v in samples.items()}
+        print(f"mesh phase (a): step ms, median of {MESH_TIME_ROUNDS} rounds of "
+              f"{MESH_TIME_STEPS} in turns: (1, 1) mesh under the fused lane "
+              f"{step_ms['mesh_fused']:.2f}, (1, 1) mesh bare {step_ms['mesh']:.2f}, "
+              f"unsharded {step_ms['unsharded']:.2f} (all rounds {samples})")
+        for claim, met in (
+            ("every loss equals the unsharded route's bit for bit", losses == plain),
+            ("the losses are finite and fall",
+             all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]),
+            ("no trip", not trips),
+            ("the local max launched once per fused step",
+             not on_card or lm_launches == n_steps),
+            ("the fingerprint launched once per owned shard",
+             owned == n_leaves and (not on_card or fp_launches == owned)),
+            ("the sharded save restored bit for bit", restored),
+        ):
+            print(f"mesh phase (a): {claim}: {'met' if met else 'NOT met'}")
+            if not met:
+                raise AssertionError(f"mesh phase (a): {claim} failed")
+        return {"losses": losses, "unsharded_losses": plain,
+                "local_max_launches": lm_launches, "fingerprint_launches": fp_launches,
+                "owned": owned, "leaves": n_leaves, "step_ms": step_ms,
+                "step_ms_rounds": samples, "save_call_ms": call_ms,
+                "save_ms": save_ms, "restore_ms": restore_ms}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        dist_mod.reset()
+        torch.use_deterministic_algorithms(False)
+
+
+def mesh_gloo_four(torch, cfg, batch_size: int, seq: int, a_losses: list,
+                   device=None) -> dict:
+    """Part (b): four exec'd children (``chip_smoke.py --mesh-child``) on a
+    (2, 2) gloo mesh over the one card, committing one save over the port's
+    store server run here."""
+    from tpu_resiliency_torch.store import StoreServer
+
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    root = tempfile.mkdtemp(prefix="tpurx_mesh4_")
+    server = StoreServer(host="127.0.0.1", port=0).start_in_thread()
+    spec = {"root": root, "store_port": server.port, "batch": batch_size,
+            "seq": seq, "steps": MESH_STEPS, "device": device,
+            "cfg": {k: getattr(cfg, k) for k in (
+                "vocab", "d_model", "n_heads", "n_layers", "d_ff", "max_seq")},
+            "dtype": None if cfg.dtype is None else str(cfg.dtype).split(".")[-1]}
+    env = dict(os.environ, CHIP_SMOKE_MESH=json.dumps(spec), OMP_NUM_THREADS="2")
+    url = f"tcp://127.0.0.1:{_free_port()}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-child", str(r),
+         str(world), url],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=HERE) for r in range(world)]
+    outs, ranks = [], []
+    try:
+        deadline = time.monotonic() + MESH_CHILD_TIMEOUT_S
+        for r, p in enumerate(procs):
+            try:
+                out, _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"mesh phase (b): rank {r} did not finish in "
+                                     f"{MESH_CHILD_TIMEOUT_S:.0f} s")
+            outs.append(out)
+            if p.returncode != 0:
+                raise AssertionError(
+                    f"mesh phase (b): rank {r} exited {p.returncode}:\n{out[-4000:]}")
+            ranks.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        server.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    wall_s = time.perf_counter() - t0
+    n_groups = 4 if ranks[0]["master"] else 3
+    want = mesh_expected_owned(cfg, n_groups)
+    n_leaves = ranks[0]["leaves"]
+    for rk in ranks:
+        print(f"mesh phase (b): rank {rk['rank']} at {rk['coord']}: losses "
+              f"{[round(v, 5) for v in rk['losses']]}, step ms "
+              f"{[round(v, 1) for v in rk['step_ms']]}; save: {rk['owned']} owned "
+              f"and {rk['non_owned']} non-owned entries, fingerprint launches "
+              f"{rk['fp_launches']}, committed in {rk['save_ms']:.0f} ms; "
+              f"restored bit for bit: {rk['restored']} in {rk['restore_ms']:.0f} ms")
+    diffs = [abs(x - y) for rk in ranks for x, y in zip(rk["losses"], a_losses)]
+    print(f"mesh phase (b): four gloo processes on one card (host-staged "
+          f"collectives, not a tensor-parallel speed): wall {wall_s:.1f} s; "
+          f"largest loss difference to (a)'s first {MESH_STEPS} steps "
+          f"{max(diffs):.6f} (tolerance {MESH_LOSS_TOL})")
+    on_card = device is None
+    for claim, met in (
+        ("every rank's losses are finite and fall", all(
+            all(math.isfinite(v) for v in rk["losses"])
+            and rk["losses"][-1] < rk["losses"][0] for rk in ranks)),
+        (f"the losses agree with (a)'s within {MESH_LOSS_TOL}",
+         max(diffs) <= MESH_LOSS_TOL),
+        ("the owned entries are the JAX rule's for (2, 2)",
+         [rk["owned"] for rk in ranks] == want
+         and all(rk["owned"] + rk["non_owned"] == n_leaves
+                 and rk["written"] == rk["owned"] for rk in ranks)),
+        ("the fingerprint launched once per owned device shard",
+         not on_card or all(rk["fp_launches"] == rk["owned"] for rk in ranks)),
+        ("every rank restored its boxes bit for bit",
+         all(rk["restored"] for rk in ranks)),
+    ):
+        print(f"mesh phase (b): {claim}: {'met' if met else 'NOT met'}")
+        if not met:
+            raise AssertionError(f"mesh phase (b): {claim} failed: {ranks}")
+    return {"ranks": ranks, "wall_s": wall_s, "expected_owned": want,
+            "max_loss_diff": max(diffs)}
+
+
+def mesh_child(rank: int, world: int, url: str) -> int:
+    """Part (b)'s child: one rank of the (2, 2) gloo mesh on the card."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from tpu_resiliency_torch.checkpointing.async_ckpt import checkpointer as ckpt_mod
+    from tpu_resiliency_torch.checkpointing.async_ckpt import device_digest as dd
+    from tpu_resiliency_torch.models import transformer as tr
+    from tpu_resiliency_torch.parallel import dp_tp, init_distributed, make_mesh
+    from tpu_resiliency_torch.store import StoreClient
+    from tpu_resiliency_torch.utils.tree import leaves
+
+    spec = json.loads(os.environ["CHIP_SMOKE_MESH"])
+    device = spec["device"]
+    on_card = device is None
+    dev = init_distributed(init_method=url, world_size=world, rank=rank,
+                           device=device, backend="gloo")
+    mesh = make_mesh(("data", "model"), MESH_SHAPE, device=device)
+    ax = dp_tp(mesh)
+    dtype = getattr(torch, spec["dtype"]) if spec["dtype"] else None
+    cfg = tr.TransformerConfig(**spec["cfg"], dtype=dtype)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    params = tr.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                            device=device, mesh=mesh)
+    opt = tr.init_opt_state(params)
+    batch = tr.make_batch(cfg, spec["batch"], spec["seq"], seed=0, device=device,
+                          mesh=mesh)
+    step = tr.make_train_step(cfg, lr=1e-3, mesh=mesh)
+    losses, step_ms = [], []
+    for _ in range(spec["steps"]):
+        sync()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, batch)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+
+    tree = tr.state_tree(params, opt)
+    copies = _local_copies(torch, leaves, tree)
+    store = StoreClient("127.0.0.1", spec["store_port"], timeout=120.0)
+    ck = ckpt_mod.AsyncCheckpointer(store=store, delta=True, digest=True,
+                                    device_digest=True)
+    path = os.path.join(spec["root"], "state")
+    try:
+        dd.shard_fingerprints.launches = 0
+        t0 = time.perf_counter()
+        ck.async_save(tree, path, {"iteration": 0})
+        ck.finalize_all(timeout=MESH_CHILD_TIMEOUT_S)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        fp_launches = dd.shard_fingerprints.launches
+    finally:
+        ck.close()
+    dist.barrier()  # rank 0's commit lands after the others' finalize
+    owned = ck.last_stage_stats["shards_owned"]
+    non_owned = ck.last_stage_stats["shards_not_owned"]
+    with open(os.path.join(path, f"process_{rank}.json")) as f:
+        written = len(json.load(f)["shards"])
+    t0 = time.perf_counter()
+    out = ckpt_mod.load_checkpoint(path, tree, resident=False)
+    sync()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    restored = _restored_bit_for_bit(torch, leaves, out, copies)
+    print(json.dumps({
+        "rank": rank, "coord": [ax.dp_index, ax.tp_index], "losses": losses,
+        "step_ms": step_ms, "leaves": len(copies), "master": "master" in opt,
+        "owned": owned, "non_owned": non_owned, "written": written,
+        "fp_launches": fp_launches, "save_ms": save_ms,
+        "restore_ms": restore_ms, "restored": restored,
+    }), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def wedge_child() -> int:
-    """Phase 9's child: a small trainer under the port's Wrapper (monitor
+    """Phase 10's child: a small trainer under the port's Wrapper (monitor
     process on) that wedges itself in the spin kernel.  Never returns on
     the card: its monitor process kills it."""
     import signal
@@ -837,7 +1217,7 @@ def wedge_child() -> int:
 
 
 def wedge_phase(torch, np, q, dd) -> dict:
-    """Phase 9: a child wedged in the spin kernel is hard-killed by its
+    """Phase 10: a child wedged in the spin kernel is hard-killed by its
     monitor process, and the card serves afterwards."""
     import signal
 
@@ -942,6 +1322,8 @@ def main() -> int:
 
     if sys.argv[1:] == ["--wedge-child"]:
         return wedge_child()
+    if sys.argv[1:2] == ["--mesh-child"] and len(sys.argv) == 5:
+        return mesh_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1088,6 +1470,9 @@ def main() -> int:
     # -- wrap phase: the in-process restart ring -----------------------------
     wrap = wrap_phase(torch, cfg, TRAIN_BATCH, TRAIN_SEQ)
 
+    # -- mesh phase: the dp x tp sharded step and its sharded save -----------
+    mesh = mesh_phase(torch, cfg, TRAIN_BATCH, TRAIN_SEQ)
+
     # -- wedge phase: the spin kernel in a child the monitor must kill --------
     wedge = wedge_phase(torch, np, q, dd)
 
@@ -1157,6 +1542,11 @@ def main() -> int:
     }
     fp_entry["wrap_launches"] = wrap["launches"]["chunk_fingerprint"]
     entry["wrap_launches"] = wrap["launches"]["quorum_local_max"]
+    # the mesh phase's own runs: (a)'s fused steps and save, (b)'s save per rank
+    entry["mesh_launches"] = mesh["a"]["local_max_launches"]
+    fp_entry["mesh_launches"] = mesh["a"]["fingerprint_launches"]
+    fp_entry["mesh_2x2_launches_per_rank"] = [
+        rk["fp_launches"] for rk in mesh["b"]["ranks"]]
     spin_entry = {
         "name": "device_spin",
         "route": "cuda",
@@ -1177,6 +1567,7 @@ def main() -> int:
     }
     print(json.dumps({"wrap": {k: wrap[k] for k in ("faults", "launches", "steps",
                                                      "wall_s")}}))
+    print(json.dumps({"mesh": mesh}))
     print(json.dumps({"kernels": [entry, fp_entry, spin_entry]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

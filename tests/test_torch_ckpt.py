@@ -13,7 +13,8 @@ against the JAX package, on the CPU:
   verdict fails closed, a slow drain never reuses a live ring slot, a ring
   of depth one is the plain snapshot;
 - the owner rule: with ``process_index=1`` replicated leaves give
-  metadata-only entries; ``store=`` and ``peers=`` raise until their slices.
+  metadata-only entries; ``store=`` is taken and ``peers=`` raises until
+  its slice.
 
 CPU tensors take the fingerprint's plain version, so the delta path runs
 here end to end; the kernel runs in ``tests/test_torch_device_digest_card.py``.
@@ -455,8 +456,16 @@ def test_replicated_leaves_are_metadata_only_off_process_zero(tmp_path):
 
 
 def test_store_and_peers_wait_for_their_slices(tmp_path):
-    with pytest.raises(NotImplementedError, match="store"):
-        AsyncCheckpointer(store=object())
+    """``store=`` is taken since the store's slice (the commit across ranks
+    runs in ``tests/test_torch_ckpt_sharded.py``), and a save across
+    several processes without one raises; ``peers=`` still waits for
+    ``peer_source.py``."""
+    ck = AsyncCheckpointer(store=object(), rank=1, world_size=2,
+                           persistent_worker=False)
+    assert (ck.rank, ck.world_size) == (1, 2)
+    ck.close()
+    with pytest.raises(ValueError, match="store"):
+        AsyncCheckpointer(world_size=2)
     with pytest.raises(NotImplementedError, match="peer"):
         load_checkpoint(str(tmp_path), {}, peers=object())
 

@@ -134,7 +134,12 @@ def test_monitor_process_and_chip_smoke_import_chains():
                 "tpu_resiliency_torch.ops.device_spin",
                 "tpu_resiliency_torch.policy.ledger",
                 "tpu_resiliency_torch.telemetry.episode",
-                "tpu_resiliency_torch.attribution.trace_analyzer"):
+                "tpu_resiliency_torch.attribution.trace_analyzer",
+                "tpu_resiliency_torch.parallel.tensor_parallel",
+                "tpu_resiliency_torch.parallel.mesh",
+                "tpu_resiliency_torch.models.transformer",
+                "tpu_resiliency_torch.checkpointing.async_ckpt.staging",
+                "tpu_resiliency_torch.checkpointing.async_ckpt.checkpointer"):
         assert new in mods, new  # so the fresh-interpreter check covers it
     proc = subprocess.run(
         [sys.executable, "-c", _NO_TORCH_SCRIPT, REPO, json.dumps(_MONITOR_CHAIN)],
@@ -208,12 +213,25 @@ def test_default_device_entry_points_raise_without_cuda(no_cuda, cpu_mesh, entry
         calls[entry]()
 
 
-def test_resolve_device_rules(no_cuda):
+def test_resolve_device_rules(no_cuda, cpu_mesh):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(RuntimeError):
         resolve_device()
     with pytest.raises(ValueError):
         resolve_device("meta")
+    # a mesh= entry over a CUDA mesh this process cannot reach raises; it
+    # never runs the step on the CPU instead
+    from torch.distributed.device_mesh import DeviceMesh
+
+    cuda_mesh = DeviceMesh("cuda", torch.zeros((1, 1), dtype=torch.int64),
+                           mesh_dim_names=("data", "model"))
+    for call in (lambda: tt.make_train_step(CFG, mesh=cuda_mesh),
+                 lambda: tt.init_params(CFG, mesh=cuda_mesh),
+                 lambda: tt.make_batch(CFG, 1, 4, mesh=cuda_mesh)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    with pytest.raises(ValueError, match="does not match the cuda mesh"):
+        tt.init_params(CFG, device="cpu", mesh=cuda_mesh)
 
 
 # -- the kernel build --------------------------------------------------------

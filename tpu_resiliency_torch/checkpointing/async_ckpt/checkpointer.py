@@ -33,9 +33,20 @@ Save pipeline per request (``stage_mode="snapshot"``, the default on CUDA):
 trainer blocks on D2H at save time (reference ``core.py:547-553`` preload
 join), for hosts where the extra device-memory copy is unaffordable.
 
-This slice covers a world of one process: the commit across ranks needs
-the store's port (``ROADMAP.md`` Queue 1 item 5), and until then passing
-``store=`` raises ``NotImplementedError``.  Restores sourced from peers
+Several processes commit one checkpoint over the store
+(``AsyncCheckpointer(store=...)``, the port's ``store.StoreClient``): each
+rank vouches for a save once its writer has written its
+``process_<i>.json`` (``core.store_sync_fn``), and rank 0 merges every
+process index into ``metadata.json`` once all ``world_size`` ranks have.
+A save across more than one process without a store raises: rank 0 would
+commit before the others had written.  Ranks other than 0 return from
+finalize without waiting for that commit, as in the reference; a restore
+right after a save waits for it (a barrier).
+
+The sharded model's state is a tree of ``DTensor`` leaves: the snapshot
+copies each local shard, staging gives each distinct box one owner
+(``staging.py``), and :func:`load_checkpoint` places the template's local
+box with the template's mesh and placements.  Restores sourced from peers
 (``peers=``) wait for ``peer_source.py``.
 
 The metadata-read side has a cache (:class:`CachedMetadataReader`, the
@@ -59,6 +70,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ...telemetry import counter, gauge, histogram
 from ...utils import env
@@ -67,11 +79,18 @@ from .core import (  # noqa: F401 - CheckpointSaveError re-exported for callers
     AsyncCallsQueue,
     AsyncRequest,
     CheckpointSaveError,
+    store_sync_fn,
 )
 from ...utils.dtypes import to_tensor
 from ...utils.tree import flatten, unflatten
 from . import resident as resident_mod
-from .staging import StagedTree, plan_signature, shard_payload, stage_pytree
+from .staging import (
+    StagedTree,
+    local_box,
+    plan_signature,
+    shard_payload,
+    stage_pytree,
+)
 from .writer import (
     _RestoreEngine,
     is_committed,
@@ -107,21 +126,32 @@ _DRAIN_PROGRESS = gauge(
 )
 
 
-_STORE_SLICE = (
-    "the commit across ranks needs the store's port (ROADMAP.md Queue 1 "
-    "item 5); this slice saves a world of one process"
-)
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard; a plain tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _like(t: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+    """``local`` in ``t``'s place: rewrapped with ``t``'s mesh, placements
+    and global shape when ``t`` is a DTensor (no copy, no collective)."""
+    if not isinstance(t, DTensor):
+        return local
+    return DTensor.from_local(local, t.device_mesh, t.placements,
+                              run_check=False, shape=t.shape, stride=t.stride())
 
 
 def _fresh_copy(t: torch.Tensor) -> torch.Tensor:
-    return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
+    src = _local(t)
+    return _like(t, torch.empty(src.shape, dtype=src.dtype,
+                                device=src.device).copy_(src))
 
 
 def device_snapshot(tree: Any) -> Any:
     """Copy every tensor leaf into fresh contiguous tensors on its device
-    (host numpy leaves are ``np.copy``'d).  Returns at once: the copies are
-    enqueued on each device's current stream, ahead of any later in-place
-    update of the sources."""
+    (host numpy leaves are ``np.copy``'d; a DTensor leaf's local shard is
+    copied and rewrapped).  Returns at once: the copies are enqueued on
+    each device's current stream, ahead of any later in-place update of the
+    sources."""
     leaves, treedef = flatten(tree)
     with torch.no_grad():
         out = [
@@ -137,10 +167,13 @@ def _ready_events(tree: Any) -> Dict[torch.device, "torch.cuda.Event"]:
     current stream: the point after which the stager may read the leaves."""
     events: Dict[torch.device, torch.cuda.Event] = {}
     for leaf in flatten(tree)[0]:
-        if isinstance(leaf, torch.Tensor) and leaf.is_cuda and leaf.device not in events:
+        if not isinstance(leaf, torch.Tensor):
+            continue
+        dev = _local(leaf).device
+        if dev.type == "cuda" and dev not in events:
             ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(leaf.device))
-            events[leaf.device] = ev
+            ev.record(torch.cuda.current_stream(dev))
+            events[dev] = ev
     return events
 
 
@@ -211,8 +244,8 @@ class AsyncCheckpointer:
     def __init__(
         self,
         store=None,
-        rank: int = 0,
-        world_size: int = 1,
+        rank: Optional[int] = None,
+        world_size: Optional[int] = None,
         process_index: Optional[int] = None,
         persistent_worker: bool = True,
         write_threads: Optional[int] = None,
@@ -228,9 +261,23 @@ class AsyncCheckpointer:
             raise ValueError(
                 f"stage_mode must be None|snapshot|sync, got {stage_mode!r}"
             )
-        if store is not None:
-            raise NotImplementedError(_STORE_SLICE)
-        self.queue = AsyncCallsQueue(persistent=persistent_worker)
+        # rank and world size default to the default process group's (a
+        # world of one without one)
+        grouped = dist.is_available() and dist.is_initialized()
+        if rank is None:
+            rank = dist.get_rank() if grouped else 0
+        if world_size is None:
+            world_size = dist.get_world_size() if grouped else 1
+        if world_size > 1 and store is None:
+            raise ValueError(
+                f"a save across {world_size} processes commits over a store: "
+                "pass store= (rank 0 would otherwise commit before the other "
+                "processes have written)"
+            )
+        sync_fn = (
+            store_sync_fn(store, rank, world_size) if store is not None else None
+        )
+        self.queue = AsyncCallsQueue(persistent=persistent_worker, sync_fn=sync_fn)
         self.rank = rank
         self.world_size = world_size
         self.write_threads = resolve_write_threads(write_threads)
@@ -261,10 +308,7 @@ class AsyncCheckpointer:
         self._delta_baseline: Optional[Dict[str, Any]] = None
         self._published_dirs: set = set()
         if process_index is None:
-            process_index = (
-                dist.get_rank()
-                if dist.is_available() and dist.is_initialized() else 0
-            )
+            process_index = dist.get_rank() if grouped else 0
         self.process_index = process_index
         self._merger = _MetadataMerger()
         self._resolved_stage_mode: Optional[str] = None
@@ -446,7 +490,7 @@ class AsyncCheckpointer:
                     # steady state: no new device memory per snapshot
                     copies = slot["leaves"]
                     for dst, i in zip(copies, dev_idx):
-                        dst.copy_(leaves[i])
+                        _local(dst).copy_(_local(leaves[i]))
                     self.snap_ring_stats["reused"] += 1
                 else:
                     copies = [_fresh_copy(leaves[i]) for i in dev_idx]
@@ -563,6 +607,10 @@ class AsyncCheckpointer:
                 "d2h_enqueue_s": staged.d2h_enqueue_s,
                 "stage_s": staged.stage_s,
                 "segment_s": staged.segment_s,
+                # the plan's split: shards this process writes, and the
+                # metadata-only entries of boxes another process owns
+                "shards_owned": sum(i.replica_owner for i in staged.shards),
+                "shards_not_owned": sum(not i.replica_owner for i in staged.shards),
             }
             _STAGE_BYTES.inc(staged.bytes_allocated + staged.bytes_reused)
             _STAGE_OVERLAP.set(staged.stage_overlap_pct)
@@ -848,7 +896,20 @@ def _place_leaf(tmpl: Any, arr: np.ndarray, leaf_path: str, dtype: str) -> Any:
     the bytes as a tensor of the checkpoint's dtype ``dtype`` (through a
     uint8 view: bf16 never passes through numpy as a value), moved to the
     template's device and cast to its dtype only where they differ; a shape
-    mismatch raises.  Other templates get a numpy array."""
+    mismatch raises.  A DTensor template gets its local box of the whole
+    leaf on its local device, wrapped with its mesh and placements (the
+    reference's ``device_put`` with the template's sharding).  Other
+    templates get a numpy array."""
+    if isinstance(tmpl, DTensor):
+        if tuple(arr.shape) != tuple(tmpl.shape):
+            raise ValueError(
+                f"leaf {leaf_path}: shape {arr.shape} != "
+                f"template {tuple(tmpl.shape)}"
+            )
+        local = tmpl.to_local()
+        part = arr[tuple(slice(a, b) for a, b in local_box(tmpl))]
+        return _like(tmpl, to_tensor(part, dtype).to(device=local.device,
+                                                     dtype=local.dtype))
     if isinstance(tmpl, torch.Tensor):
         if tuple(arr.shape) != tuple(tmpl.shape):
             raise ValueError(

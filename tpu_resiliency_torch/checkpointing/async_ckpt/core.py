@@ -21,9 +21,10 @@ worker is involved — tensors never cross the process boundary; only shm
 names and numpy metadata do (see ``staging.py``).
 
 The port's copy of ``tpu_resiliency/checkpointing/async_ckpt/core.py``: the
-worker is this package's ``worker_main``.  :func:`store_sync_fn` is kept
-for the cross-rank commit, which needs the store's port (``ROADMAP.md``
-Queue 1 item 5); until then the checkpointer refuses ``store=``.
+worker is this package's ``worker_main``.  :func:`store_sync_fn` is the
+cross-rank commit of ``AsyncCheckpointer(store=...)``: over the port's
+``store.StoreClient``, against the port's store server or the JAX
+package's (one wire protocol).
 """
 
 from __future__ import annotations

@@ -32,6 +32,11 @@ arithmetic masked to 32 bits, chunk by chunk).  :func:`host_fingerprints`
 is the numpy oracle over host bytes.  Complex and other dtypes without a
 lane view return None: those shards stay on the host-crc path.
 
+On a mesh the staging fingerprints each **owned local shard** (a
+``DTensor`` leaf's box that this process writes), so a save launches the
+kernel once per owned device shard, and a process that owns none (the
+replicas on ``"data"`` > 0) launches it zero times.
+
 This module and ``staging.py`` are the only device-to-host touchpoints for
 checkpoint state.
 """
@@ -44,6 +49,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ...utils import env as _envknobs
 from ...utils.cuda_build import load_kernel_library
@@ -202,7 +208,12 @@ def shard_fingerprints(
     On a CUDA tensor this launches the kernel on the current stream and
     counts it in ``shard_fingerprints.launches`` (a launch that CUDA
     refuses raises); on a CPU tensor it takes :func:`fingerprint_reference`.
-    ``data`` must be contiguous."""
+    ``data`` must be contiguous.  A ``DTensor`` is fingerprinted by its
+    local shard: one launch per owned local shard, as the reference
+    fingerprints each addressable shard (the staging keys the rows by
+    (leaf, shard))."""
+    if isinstance(data, DTensor):
+        data = data.to_local()
     if not supported(data.dtype):
         return None
     if not data.is_contiguous():

@@ -21,13 +21,21 @@ steps.
   (ctypes releases the GIL while CUDA pins the pages).  A
   registration that fails raises: a copy into pageable memory would
   silently turn synchronous.
-- **Ownership.**  A tensor on one device is one shard whose box is the whole
-  shape.  State on one device per process is replicated across the
-  data-parallel world, so process 0 writes it and every other process
-  records a metadata-only entry: the JAX package's ``_replica_owner`` rule
-  for fully replicated leaves (``staging.py:279-286`` there).  Host leaves
-  (numpy arrays, scalars) follow the same rule.  Tensor-parallel shards
-  (DTensor) come with the model's sharding.
+- **Ownership.**  A ``DTensor`` leaf (the sharded model's state,
+  ``models/transformer.py::state_tree`` on a mesh) is this process's local
+  shard, whose box in the global shape follows from the mesh and the
+  placements: :func:`shard_owner_map` gives every distinct box ONE owner,
+  the lowest flat mesh index holding it, so a box replicated over
+  ``"data"`` (and a fully replicated leaf, whose one box is the whole
+  shape) is written once; it asserts that the boxes tile the global shape
+  exactly once.  A process that does not own its box records a
+  metadata-only entry.  This is the JAX package's ``shard_owner_map`` /
+  ``shard_is_owner`` (``staging.py:235-301`` there) over a DeviceMesh
+  instead of a device map.  A plain tensor is one shard whose box is the
+  whole shape, replicated across the data-parallel world: process 0 writes
+  it and every other process records a metadata-only entry (the
+  reference's ``_replica_owner`` rule for fully replicated leaves).  Host
+  leaves (numpy arrays, scalars) follow the same rule.
 - **Device-side change mask** (``device_digest.py``): with a
   :class:`~.device_digest.DigestContext`, every owned tensor shard is
   fingerprinted on its device and one batched readback of the rows decides,
@@ -55,6 +63,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import math
 import threading
 import time
 from multiprocessing import shared_memory
@@ -62,11 +71,14 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
+from ...parallel.mesh import flat_index
 from ...utils.dtypes import dtype_name
 from ...utils.logging import get_logger
 from ...utils.shm import create_shm, unlink_shm
 from ...utils.tree import flatten_with_path
+from ..coverage import covers
 from . import device_digest as dd
 
 log = get_logger("ckpt.staging")
@@ -208,16 +220,121 @@ def _whole_box(shape: Tuple[int, ...]) -> Tuple[Tuple[int, int], ...]:
     return tuple((0, int(s)) for s in shape)
 
 
+Box = Tuple[Tuple[int, int], ...]
+
+
+def _norm_box(index, global_shape) -> Box:
+    """Normalize a per-dim slice tuple to concrete (start, stop) bounds."""
+    out = []
+    for dim, sl in enumerate(index):
+        start = sl.start if sl.start is not None else 0
+        stop = sl.stop if sl.stop is not None else global_shape[dim]
+        out.append((int(start), int(stop)))
+    return tuple(out)
+
+
+def _box_volume(box: Box) -> int:
+    v = 1
+    for a, b in box:
+        v *= max(0, b - a)
+    return v
+
+
+def mesh_boxes(leaf: DTensor) -> List[Box]:
+    """The box of ``leaf`` held at each flat mesh index, in flat order: a
+    ``Shard(d)`` placement on a mesh axis of size k splits dimension d
+    into k chunks of ``ceil(n / k)`` (``torch.chunk``'s rule, the DTensor
+    layout; an even split where k divides n), nested in mesh-axis order;
+    ``Replicate`` leaves the dimension whole.  A ``Partial`` leaf has no
+    box (its shards are addends) and raises."""
+    mesh = leaf.device_mesh
+    shape = tuple(int(s) for s in leaf.shape)
+    sizes = tuple(int(s) for s in mesh.mesh.shape)
+    boxes: List[Box] = []
+    for flat in range(math.prod(sizes)):
+        coord = np.unravel_index(flat, sizes)
+        index = [slice(0, n) for n in shape]
+        for axis, pl in enumerate(leaf.placements):
+            if pl.is_replicate():
+                continue
+            if not pl.is_shard():
+                raise ValueError(f"cannot checkpoint a {pl} placement")
+            d = pl.dim
+            lo, hi = index[d].start, index[d].stop
+            size = -(-(hi - lo) // sizes[axis])
+            start = min(lo + int(coord[axis]) * size, hi)
+            index[d] = slice(start, min(start + size, hi))
+        boxes.append(_norm_box(index, shape))
+    return boxes
+
+
+def shard_owner_map(leaf: DTensor) -> Dict[Box, int]:
+    """Derive the save plan's owner assignment from the placement itself:
+    the box at every flat mesh index reduced to ONE owning index per
+    distinct box (the lowest), so replicas, including fully replicated
+    leaves, where every index holds the whole-shape box, are written
+    exactly once mesh-wide.  The flat index orders owners as the device id
+    does in the JAX package: every process derives the same owners without
+    any exchange.
+
+    Asserts exactly-once global coverage before returning: the distinct
+    boxes must cover the global shape (interval accounting) AND their
+    volumes must sum to its total element count; cover alone tolerates
+    overlapping boxes, which would double-drain bytes."""
+    global_shape = tuple(int(s) for s in leaf.shape)
+    owners: Dict[Box, int] = {}
+    for flat, box in enumerate(mesh_boxes(leaf)):
+        owners.setdefault(box, flat)
+    boxes = list(owners)
+    total = math.prod(global_shape) if global_shape else 1
+    vol = sum(_box_volume(b) for b in boxes)
+    if vol != total or not covers(global_shape, boxes):
+        raise ValueError(
+            f"sharding does not tile the global shape exactly once: shape "
+            f"{global_shape} has {total} elements but the {len(boxes)} "
+            f"distinct index boxes {'cover' if vol > total else 'reach'} "
+            f"{vol} — a save from this plan would "
+            f"{'double-drain' if vol > total else 'lose'} data"
+        )
+    return owners
+
+
+def local_box(leaf: DTensor) -> Box:
+    """The box of ``leaf``'s local shard in its global shape (raises if
+    the local tensor's shape is not the box's)."""
+    box = mesh_boxes(leaf)[flat_index(leaf.device_mesh)]
+    local = leaf.to_local()
+    if tuple(b - a for a, b in box) != tuple(local.shape):
+        raise ValueError(f"local shard {tuple(local.shape)} is not its box {box}")
+    return box
+
+
+def shard_is_owner(leaf: DTensor) -> bool:
+    """Does THIS process drain its local shard of ``leaf``?  Yes iff its
+    flat mesh index owns its box (:func:`shard_owner_map`)."""
+    me = flat_index(leaf.device_mesh)
+    return shard_owner_map(leaf)[local_box(leaf)] == me
+
+
 def plan_signature(tree: Any, process_index: Optional[int] = None) -> str:
     """Cheap metadata-only fingerprint of a save plan: tree structure and
-    per-leaf shape, dtype and placement.  Two trees with the same signature
-    stage into identical shm layouts, so segments and plans are reused
-    across saves."""
+    per-leaf shape, dtype and placement (for a ``DTensor`` its local box,
+    replica id and whether it is replicated, as the reference hashes each
+    addressable shard).  Two trees with the same signature stage into
+    identical shm layouts, so segments and plans are reused across saves."""
     _, paths, leaves = _leaf_paths(tree)
     h = hashlib.sha256()
     h.update(str(process_index).encode())
     for path, leaf in zip(paths, leaves):
-        if isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, DTensor):
+            shape = tuple(leaf.shape)
+            boxes, me = mesh_boxes(leaf), flat_index(leaf.device_mesh)
+            # the replica id: this index's rank among those holding its box
+            replica = boxes[:me].count(boxes[me])
+            rep = all(pl.is_replicate() for pl in leaf.placements)
+            sh = f"{boxes[me]}r{replica}|rep={rep}|{leaf.to_local().device}"
+            desc = f"{path}|{shape}|{leaf.dtype}|{sh}"
+        elif isinstance(leaf, torch.Tensor):
             shape = tuple(leaf.shape)
             sh = f"{_whole_box(shape)}r0|rep=True|{leaf.device}"
             desc = f"{path}|{shape}|{leaf.dtype}|{sh}"
@@ -230,8 +347,8 @@ def plan_signature(tree: Any, process_index: Optional[int] = None) -> str:
 
 def _replica_owner(pidx: int) -> bool:
     """The ownership rule of a shard replicated across the data-parallel
-    world (every tensor on one device, every host leaf): process 0 writes
-    it, so N processes never write N identical copies."""
+    world (every plain tensor, every host leaf): process 0 writes it, so N
+    processes never write N identical copies."""
     return pidx == 0
 
 
@@ -297,6 +414,8 @@ def _build_plan(
             if not info.replica_owner:
                 continue
             leaf = leaves[info.leaf_idx]
+            if isinstance(leaf, DTensor):
+                leaf = leaf.to_local()
             if isinstance(leaf, torch.Tensor):
                 nbytes = leaf.numel() * leaf.element_size()
                 if nbytes != info.nbytes:
@@ -311,6 +430,21 @@ def _build_plan(
 
     owner = _replica_owner(pidx)
     for i, leaf in enumerate(leaves):
+        if isinstance(leaf, DTensor):
+            mine = shard_is_owner(leaf)
+            local = leaf.to_local()
+            info = ShardInfo(
+                leaf_idx=i, shard_idx=0,
+                global_shape=tuple(int(s) for s in leaf.shape),
+                index=local_box(leaf), dtype=dtype_name(local.dtype),
+                shm_name="",
+                nbytes=local.numel() * local.element_size() if mine else 0,
+                replica_owner=mine,
+            )
+            staged.shards.append(info)
+            if mine:
+                work.append(_OwnedWork(info, local, True))
+            continue
         if isinstance(leaf, torch.Tensor):
             shape = tuple(int(s) for s in leaf.shape)
             info = ShardInfo(

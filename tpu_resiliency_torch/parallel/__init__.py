@@ -5,7 +5,7 @@ The collective surface is the self-healing wrapper layer:
 resiliency-layer collective.
 """
 
-from .mesh import make_mesh, mesh_axis_sizes
+from .mesh import DpTp, dp_tp, flat_index, make_mesh, mesh_axis_sizes
 from .collectives import (
     ResilientCollective,
     device_max_reduce,
@@ -20,6 +20,9 @@ from .health import RouteHealth, health
 from .distributed import init_distributed
 
 __all__ = [
+    "DpTp",
+    "dp_tp",
+    "flat_index",
     "make_mesh",
     "mesh_axis_sizes",
     "ResilientCollective",

@@ -8,7 +8,10 @@ calls ``jax.distributed.initialize`` with a coordinator derived from the
     from tpu_resiliency_torch.parallel import init_distributed
     device = init_distributed()          # idempotent
 
-- NCCL on the card, gloo on the CPU (``device="cpu"``).
+- NCCL on the card, gloo on the CPU (``device="cpu"``).  ``backend="gloo"``
+  on a CUDA device lets several processes share one card (NCCL refuses two
+  ranks on one GPU); gloo stages CUDA tensors through the host.  The
+  backend is the caller's choice or this default, never picked silently.
 - World size and rank come from ``TPURX_WORLD_SIZE`` / ``TPURX_RANK``
   (falling back to ``WORLD_SIZE`` / ``RANK``); the card is
   ``TPURX_LOCAL_RANK``.  The rendezvous address defaults to the store host
@@ -45,9 +48,12 @@ def init_distributed(
     rank: Optional[int] = None,
     device: DeviceLike = None,
     store=None,
+    backend: Optional[str] = None,
 ) -> torch.device:
     """Initialize the default process group from tpurx env (idempotent).
-    Returns the device this process drives."""
+    Returns the device this process drives.  ``backend=None`` is NCCL on
+    the card and gloo on the CPU; ``"nccl"`` or ``"gloo"`` is taken as
+    given (NCCL on the CPU raises)."""
     global _device
     if dist.is_initialized():
         if _device is None:
@@ -62,10 +68,14 @@ def init_distributed(
     if device is None and torch.cuda.is_available():
         device = torch.device("cuda", _env.LOCAL_RANK.get())
     dev = resolve_device(device)
-    backend = "gloo"
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError(f"NCCL needs a CUDA device, not {dev}")
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-        backend = "nccl"
     if world_size <= 1 and store is None:
         dist.init_process_group(
             backend, store=dist.HashStore(), rank=0, world_size=1

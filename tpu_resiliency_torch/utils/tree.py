@@ -1,7 +1,9 @@
 """Nested containers of tensors: the port's counterpart of ``jax.tree_util``.
 
 A tree is made of dicts, lists, tuples and ``None``; everything else
-(tensors, numpy arrays, scalars) is a leaf.  :func:`flatten_with_path`
+(tensors, numpy arrays, scalars) is a leaf.  A ``DTensor`` (the sharded
+model's state) is a leaf too, as a sharded ``jax.Array`` is: one leaf per
+global tensor, whatever its placement.  :func:`flatten_with_path`
 orders the leaves as ``jax.tree_util.tree_flatten_with_path`` does (dict
 keys sorted, sequences in order, ``None`` an empty subtree) and names each
 leaf's path as ``jax.tree_util.keystr`` does, e.g. ``['layers'][0]['wq']``.
