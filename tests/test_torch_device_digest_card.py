@@ -5,10 +5,15 @@ and the checkpoint path around it, on the card:
   bit, for f32, bf16, f16, f64, int8, uint8, int32, int64 and bool, at sizes
   from 1 element to 1 GiB, start offsets 0-3 and several chunk grids, and
   with two streams launching at once;
+- the batched call over the flagship's 141 train-state leaves and over a
+  mixed list (every dtype, offsets 0-3, empty leaves, a scalar, more leaves
+  than one launch takes) equals the plain version leaf by leaf, in one
+  launch per ``LEAVES_PER_LAUNCH`` leaves, counting every leaf;
 - a delta save of a small flagship model on the card: the first save
   transfers every byte into page-locked shared memory, an unchanged second
   save skips all of it, a save after one element changed transfers exactly
-  that shard, and each restores bit for bit onto the card.
+  that shard, and each restores bit for bit onto the card; each save
+  launches the kernel once over every leaf.
 
 Every test is marked ``cuda`` and skips without a card.  On the card, run
 them with ``python -m pytest --noconftest -m cuda tests/test_torch_*card*.py``
@@ -27,6 +32,7 @@ from tpu_resiliency_torch.checkpointing.async_ckpt.checkpointer import (
     AsyncCheckpointer,
     load_checkpoint,
 )
+from tpu_resiliency_torch.checkpointing.async_ckpt.writer import chunk_grid
 from tpu_resiliency_torch.models import transformer as tr
 from tpu_resiliency_torch.utils.tree import leaves
 
@@ -58,6 +64,25 @@ def _rows(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().view(np.uint32)
 
 
+def _counts():
+    return dd.batch_fingerprints.launches, dd.batch_fingerprints.shards
+
+
+def _check_batch(xs, chunk_bytes, direct, launches, label):
+    """``batch_fingerprints(xs)`` against the plain version leaf by leaf,
+    with ``launches`` launches and every leaf counted."""
+    before = _counts()
+    got = dd.batch_fingerprints(xs, chunk_bytes, direct)
+    assert _counts() == (before[0] + launches, before[1] + len(xs)), label
+    rows = dd.read_fingerprints(got)
+    for k, (x, r) in enumerate(zip(xs, rows)):
+        n = x.numel() * x.element_size()
+        assert r.shape == (len(chunk_grid(n, chunk_bytes, direct)), 2), (label, k)
+        np.testing.assert_array_equal(
+            r, _rows(dd.fingerprint_reference(x, chunk_bytes, direct)),
+            err_msg=str((label, k, x.dtype, tuple(x.shape))))
+
+
 @pytest.mark.cuda
 def test_card_kernel_equals_plain_and_numpy(card):
     for name in DTYPES:
@@ -67,10 +92,10 @@ def test_card_kernel_equals_plain_and_numpy(card):
                 x = base[offset:offset + n]
                 for chunk_bytes, direct in GRIDS:
                     case = (name, n, offset, chunk_bytes, direct)
-                    before = dd.shard_fingerprints.launches
+                    before = _counts()
                     got = dd.shard_fingerprints(x, chunk_bytes, direct)
                     want = dd.fingerprint_reference(x, chunk_bytes, direct)
-                    assert dd.shard_fingerprints.launches == before + 1, case
+                    assert _counts() == (before[0] + 1, before[1] + 1), case
                     np.testing.assert_array_equal(_rows(got), _rows(want),
                                                   err_msg=str(case))
                     np.testing.assert_array_equal(
@@ -102,10 +127,38 @@ def test_card_kernel_on_two_streams_at_once(card):
         for x, s in zip(xs, streams):
             with torch.cuda.stream(s):
                 outs.append((x, dd.shard_fingerprints(x, 65536, True)))
+                # and a batch of slices of it, on the same stream
+                parts = [x[i::1][: (1 << 20) + i] for i in range(3)]
+                outs.extend(zip(parts, dd.batch_fingerprints(parts, 65536, True)))
     torch.cuda.synchronize()
     for x, got in outs:
         np.testing.assert_array_equal(
             _rows(got), _rows(dd.fingerprint_reference(x, 65536, True)))
+
+
+@pytest.mark.cuda
+def test_card_batch_over_the_flagship_state_and_a_mixed_list(card):
+    params = tr.init_params(tr.TransformerConfig(), torch.Generator(card).manual_seed(0))
+    opt = tr.init_opt_state(params)
+    with torch.no_grad():
+        for t in opt["mu"] + opt["nu"]:
+            t.normal_()
+        opt["count"] += 3
+    state = leaves(tr.state_tree(params, opt))
+    assert (len(state), sum(t.numel() * t.element_size() for t in state)) == (
+        141, 412_941_316)
+    _check_batch(state, dd.default_chunk_bytes(), True, 1, "flagship")
+    mixed = []
+    for k, name in enumerate(DTYPES * 3):
+        n = (0, 1, 4099, 70001, 9)[k % 5]
+        base = _values(name, n + 4, seed=k, device=card)
+        mixed.append(base[k % 4:k % 4 + n])
+    mixed.append(torch.tensor(7, dtype=torch.int32, device=card))  # a scalar
+    for chunk_bytes, direct in GRIDS:
+        _check_batch(mixed, chunk_bytes, direct, 1, ("mixed", chunk_bytes, direct))
+    many = [_values(DTYPES[k % len(DTYPES)], k % 37, seed=k, device=card)
+            for k in range(dd.LEAVES_PER_LAUNCH + 45)]
+    _check_batch(many, 4096, True, 2, "more leaves than one launch takes")
 
 
 @pytest.mark.cuda
@@ -126,11 +179,12 @@ def test_card_delta_saves_restore_bit_for_bit(card, tmp_path):
                 with torch.no_grad():
                     params.embed[3, 5] += 1
             saved[g] = [t.clone() for t in leaves(tree)]
-            before = dd.shard_fingerprints.launches
+            before = _counts()
             ck.async_save(tree, str(tmp_path / g), {"iteration": g})
             ck.finalize_all()
             stats = ck.last_stage_stats
-            assert dd.shard_fingerprints.launches - before == len(saved[g]), g
+            # one launch per save over every leaf
+            assert _counts() == (before[0] + 1, before[1] + len(saved[g])), g
             if g == "a":
                 assert stats["d2h_bytes"] == total and stats["d2h_skipped_bytes"] == 0
                 pooled = ck._pool[0]

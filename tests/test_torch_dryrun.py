@@ -58,5 +58,6 @@ def test_dryrun_multichip_on_gloo_ranks(n, capsys, monkeypatch):
     assert all(0 <= r["age_ns"] < 60_000_000_000 for r in ranks)
     assert all(r["backend"] == "gloo" and r["device"] == "cpu" for r in ranks)
     # the kernels count launches on the card only
-    assert all(r["launches"] == {"quorum_local_max": 0, "chunk_fingerprint": 0}
+    assert all(r["launches"] == {"quorum_local_max": 0, "chunk_fingerprint": 0,
+                                 "chunk_fingerprint_shards": 0}
                for r in ranks)

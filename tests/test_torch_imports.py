@@ -415,9 +415,11 @@ def test_kernel_source_has_plain_c_entry_point():
 
     with open(os.path.join(cuda_build.CSRC_DIR, "chunk_fingerprint.cu")) as f:
         src = f.read()
-    assert 'extern "C" int tpurx_chunk_fingerprint(' in src
-    assert "cudaGetLastError" in src and "cudaMemsetAsync" in src
-    # one unsigned atomicAdd per block and sum: order-independent mod 2^32
+    assert 'extern "C" int tpurx_chunk_fingerprint_batch(' in src
+    assert "cudaGetLastError" in src and src.count("cudaMemsetAsync(") == 1
+    # the leaf table travels by value, read in place from the parameters
+    assert "const __grid_constant__ Table<kRows> table" in src
+    # one unsigned atomicAdd per tile and sum: order-independent mod 2^32
     assert src.count("atomicAdd(") == 2
     assert "torch" not in src
 

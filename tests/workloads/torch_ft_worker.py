@@ -10,7 +10,9 @@ world's group with ``on_stale=quorum_restart_requester(client)`` — saves with
 ``AsyncCheckpointer(delta=True, device_digest=True)`` every few steps, and on
 start resumes from the newest committed checkpoint.  Both kernels of the
 port run here on the card: the quorum local max in every fused step and
-tick, the chunk fingerprint in every save.
+tick, the chunk fingerprint once in every save, over the rank's owned
+leaves.  Each commit and the end report both kernels' counts beside the
+saves made and the shards owned.
 
 Env (besides the launcher's ``TPURX_*`` identity and sockets):
   FT_OUT      output directory: checkpoints, ``losses.r<rank>.jsonl`` (one
@@ -79,7 +81,8 @@ def emit(event, **fields):
 
 def launches(q, dd):
     return {"quorum_local_max": q.local_max.launches,
-            "chunk_fingerprint": dd.shard_fingerprints.launches}
+            "chunk_fingerprint": dd.batch_fingerprints.launches,
+            "chunk_fingerprint_shards": dd.batch_fingerprints.shards}
 
 
 class TimedStore:
@@ -319,20 +322,23 @@ def main():
                 client.send_heartbeat()
             if s in saved:
                 ck.maybe_finalize(blocking=True)   # the save drained under step s
-                emit("committed", step=s, launches=launches(q, dd))
+                emit("committed", step=s, launches=launches(q, dd), saves=len(saved),
+                     owned=ck.last_stage_stats.get("shards_owned", 0))
             s += 1
             if progress and RANK == 0:
                 write_progress_iteration(progress, s)
             if step_sleep:
                 time.sleep(step_sleep)
     ck.finalize_all(timeout=120.0)
+    owned = ck.last_stage_stats.get("shards_owned", 0)
     ck.close()
     fq.check_now()
     # the tick lane spans the world: every rank ends it after the same tick
     mon.stop(sync=max_over_world if WORLD > 1 else None)
     store_stats = ({"store_ops": store.ops, "store_max_ms": store.max_ms}
                    if isinstance(store, TimedStore) else {})
-    emit("done", steps=s, launches=launches(q, dd), trips=trips, **store_stats)
+    emit("done", steps=s, launches=launches(q, dd), saves=len(saved), owned=owned,
+         trips=trips, **store_stats)
     print("INJOB_LAUNCHES " + json.dumps({"rank": RANK, "cycle": CYCLE,
                                           **launches(q, dd)}), flush=True)
     if runner is not None:

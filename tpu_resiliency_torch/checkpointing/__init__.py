@@ -10,9 +10,9 @@ The on-disk format is the JAX package's (shard files, per-chunk crc rows,
 the other, bit for bit.
 
 - The device snapshot is a ``copy_`` of every tensor leaf into a reused
-  ring slot on the trainer's stream; a stager thread fingerprints each
-  leaf on the card (``async_ckpt/device_digest.py``, a hand-written CUDA
-  kernel), and copies the shards that changed since the committed
+  ring slot on the trainer's stream; a stager thread fingerprints every
+  leaf on the card in one launch per save (``async_ckpt/device_digest.py``,
+  a hand-written CUDA kernel), and copies the shards that changed since the committed
   baseline to the host, on a copy stream, into page-locked POSIX shared
   memory (``async_ckpt/staging.py``).
 - A plain worker subprocess (``async_ckpt/worker_main.py``) writes the

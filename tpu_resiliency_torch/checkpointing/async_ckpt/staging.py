@@ -38,7 +38,8 @@ steps.
   leaves (numpy arrays, scalars) follow the same rule.
 - **Device-side change mask** (``device_digest.py``): with a
   :class:`~.device_digest.DigestContext`, every owned tensor shard is
-  fingerprinted on its device and one batched readback of the rows decides,
+  fingerprinted on its device, one launch per card over all of its shards,
+  and one readback of each card's rows decides,
   before any copy is enqueued, which shards transfer at all.  A shard whose
   every chunk matches the committed baseline is recorded as skipped spans
   with their base-generation provenance (``ShardInfo.skip_spans``): no
@@ -183,8 +184,8 @@ class StagedTree:
     device_fps: Dict[Tuple[int, int], np.ndarray] = dataclasses.field(
         default_factory=dict
     )
-    device_digest_s: float = 0.0          # fingerprint launches + row readback
-    device_digest_launch_s: float = 0.0   # the launches alone (host time)
+    device_digest_s: float = 0.0          # fingerprint launch + row readback
+    device_digest_launch_s: float = 0.0   # the batched launch alone (host time)
     d2h_skipped_bytes: int = 0            # bytes that never left the device
     _shms: List[shared_memory.SharedMemory] = dataclasses.field(default_factory=list)
     # addresses of the segments page-locked for device copies
@@ -533,16 +534,18 @@ def _stage_pipelined(
 
     if digest_ctx is not None:
         # On-device change mask BEFORE any transfer is issued: fingerprint
-        # every owned tensor shard where its bytes live, then one batched
-        # readback of the rows decides transfer-vs-skip per shard.
+        # every owned tensor shard where its bytes live (one launch per card
+        # over all of its shards), then one readback of each card's rows
+        # decides transfer-vs-skip per shard.
         t0 = time.perf_counter()
         fps_dev: List[Optional[torch.Tensor]] = [None] * len(work)
         for dev, ks in groups.items():
             with on_stream(dev):
-                for k in ks:
-                    fps_dev[k] = dd.shard_fingerprints(
-                        work[k].source, digest_ctx.chunk_bytes,
-                        digest_ctx.use_direct)
+                rows = dd.batch_fingerprints(
+                    [work[k].source for k in ks], digest_ctx.chunk_bytes,
+                    digest_ctx.use_direct)
+            for k, fp in zip(ks, rows):
+                fps_dev[k] = fp
         staged.device_digest_launch_s = time.perf_counter() - t0
         with contextlib.ExitStack() as on_all:
             # each device's readback is ordered after its fingerprints

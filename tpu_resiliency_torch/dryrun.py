@@ -25,7 +25,8 @@ runs
 Rank 0 prints the reference's summary line, with the same tokens; the
 parent relays it.  Each rank also prints one JSON line with its counts and
 the launches of the two kernels on the path (the quorum local max in stage
-2, the chunk fingerprint in stage 3; both count only launches on the card).
+2, the chunk fingerprint in stage 3, one launch over the rank's owned
+shards, with the shards it covered; all count only launches on the card).
 
 The reference's dryrun imports ``now_stamp_ms``, which its package no longer
 has, and hands ms stamps to a ``quorum_reduce`` that reads ns: it cannot
@@ -98,7 +99,7 @@ def _stage_async_ckpt(rank: int, params, root: str, store,
         )
 
     ckpt_dir = os.path.join(root, "ckpt")
-    dd.shard_fingerprints.launches = 0
+    dd.batch_fingerprints.launches = dd.batch_fingerprints.shards = 0
     # the fingerprint kernel runs on the card; the CPU's sync staging hands
     # the live (possibly strided) local shards to the stager, which the
     # fingerprint refuses
@@ -109,7 +110,8 @@ def _stage_async_ckpt(rank: int, params, root: str, store,
         ckpt.finalize_all(timeout=300.0)
     finally:
         ckpt.close()
-    fp_launches = dd.shard_fingerprints.launches
+    fp_launches = dd.batch_fingerprints.launches
+    fp_shards = dd.batch_fingerprints.shards
     dist.barrier()  # rank 0 commits after every rank has written
     restored = load_checkpoint(ckpt_dir, template=params)
     for (path, a), (_, b) in zip(flatten_with_path(params)[0],
@@ -122,7 +124,7 @@ def _stage_async_ckpt(rank: int, params, root: str, store,
             f"ckpt roundtrip mismatch at {path}")
     return {"owned": owned, "non_owned": non_owned,
             "owned_here": mine[0], "non_owned_here": mine[1],
-            "fp_launches": fp_launches,
+            "fp_launches": fp_launches, "fp_shards": fp_shards,
             "token": f"ckpt_roundtrip_ok owned={owned} non_owned={non_owned}"}
 
 
@@ -218,7 +220,8 @@ def run_rank(rank: int, n: int, url: str, store_port: int, root: str,
     out = {"rank": rank, "loss": loss_val, "age_ns": int(age),
            "backend": backend, "device": str(dev),
            "launches": {"quorum_local_max": qm_launches,
-                        "chunk_fingerprint": ckpt["fp_launches"]},
+                        "chunk_fingerprint": ckpt["fp_launches"],
+                        "chunk_fingerprint_shards": ckpt["fp_shards"]},
            "owned": ckpt["owned_here"], "non_owned": ckpt["non_owned_here"]}
     if rank == 0:
         stages = [ckpt["token"], ici, straggler]
