@@ -107,8 +107,8 @@ Phases, each of which raises on failure (the run then exits non-zero):
    device_digest=True``, the fingerprint launched once over every owned
    shard and the restore compared bit for bit with a device copy taken at
    the save;
-   then both routes' step times, in turns.  (b) Four processes share the
-   card over gloo on a (2, 2) mesh: each is exec'd as ``python3
+   then both routes' step times, in turns.  (b) Beside local (b) and (c)
+   (none of the three claims a time), four processes share the card over gloo on a (2, 2) mesh: each is exec'd as ``python3
    chip_smoke.py --mesh-child <rank> <world> <url>`` (the kernels were built
    above), trains 3 steps from the same seed-0 weights (its box of each)
    and saves once, committed across the four over the port's store server
@@ -162,7 +162,7 @@ Phases, each of which raises on failure (the run then exits non-zero):
    from a second exchange's ``PeerRestoreSource``, every fetched byte
    served by the first (the fingerprint launched once per save over every
    leaf).
-   (b) After the mesh phase, the port's ``dryrun_multichip(4)``: four gloo
+   (b) After mesh (a), beside mesh (b), the port's ``dryrun_multichip(4)``: four gloo
    processes on the card run the five stages of the main path with every
    stage's assertion; kernel 1 must launch once per rank (stage 2) and
    kernel 2 once over each rank's owned shards (stage 3), and rank 0's line
@@ -291,8 +291,9 @@ Phases, each of which raises on failure (the run then exits non-zero):
    and warm-joins from its peers' memory.  The victim must be evacuated once, before the
    deadline, no healthy rank at all, the ``evac/`` records published, the
    join warm (peer-memory bytes > 0, none from disk) and bit for bit, and
-   each published decision batch applied once by each client.  (c) Two
-   processes (``--sanitize-child``) run the ``Wrapper`` over gloo on the
+   each published decision batch applied once by each client.  (c) Beside
+   (b) (neither claims a time), two processes (``--sanitize-child``) run the
+   ``Wrapper`` over gloo on the
    card at the flagship's width and 2 layers for 8 steps under
    ``TPURX_SANITIZE=1`` with a witness path; rank 1 raises at step 3 of
    iteration 0.  Both must exit 0 with ``ret=done@1``, the witness files
@@ -341,7 +342,9 @@ Phases, each of which raises on failure (the run then exits non-zero):
    and power limit: the gate's verdicts and ms, spawn to first step, the
    smonsvc status, the save, load and migration ms.  The phase is bounded at 180 s.
 19. examples — the port's examples (``examples/torch/``), after every other
-   phase, each a process of its own with its default device (the card),
+   phase, beside the soak's (a)-(d), each a process of its own with its
+   default device (the card; ``advanced_example.py``, ``async_ckpt.py`` and
+   ``straggler/example.py``, which claim no time, side by side),
    run as ``python3 chip_smoke.py --example-run <script> [args]``, which
    runs the script as ``__main__`` and then writes the launch counts of
    kernels 1 and 2 and its saves.  ``inprocess/advanced_example.py`` over
@@ -363,6 +366,28 @@ Phases, each of which raises on failure (the run then exits non-zero):
    steps and finish every step, with kernel 2 launched once per save of
    cycle 1.  Each run prints its exit code, wall seconds, sentinel line and
    launches; the phase is bounded at 180 s.
+20. soak — the port's chaos soak: five campaigns of ``python -m
+   tpu_resiliency_torch.soak``, each in a session of its own with its
+   workers on the card and its temporary files under the phase's
+   directory.  (a)-(d) start just before the examples phase and run beside
+   it: (a) the gate's mix for 120 s, ``--chaos-store --quorum
+   --store-kill-mid-save`` with the JAX smoke's probabilities and bounds
+   (15000 / 60000 ms), (b) ``--corrupt-blob bitflip`` with its trees on
+   the card, (c) ``--link-degrade`` and (d) ``--store-longpoll-abort``.
+   Once the examples and (b)-(d) have ended, (e) ``--fault-shift`` at 40 s
+   an arm (a worker's start on the card takes 8-17 s) runs beside the rest
+   of (a).  (a)'s report must hold ``ok``, monotone progress and the
+   ladder, at least one store kill, one inner recovery and one
+   ``fingerprint/released``, a restart cycle for the crashes and hangs
+   injected, every started save completed, kernel 1 launched in the
+   workers' tick lanes (each worker writes its count per step) and every
+   worker on the card; each other campaign must meet its JAX smoke test's
+   assertions ((e): both arms ok, a finite gain, and progress > 0 in each
+   arm as the arm reported it; the 1.1x gate is printed).  Afterwards no
+   process of these campaigns may be left, on the card (``nvidia-smi``) or
+   off it.  Each report is printed; the phase is bounded at 300 s.
+
+A line ``timeline: <phases> ended at <s> s`` follows each phase.
 
 Informational lines come first; the line before the last holds the card's
 name and power limit, and the last line is one JSON object
@@ -456,6 +481,31 @@ STRAGGLER_CHILD_TIMEOUT_S = 300.0
 LOCAL_DRAIN_STEPS = 2
 LOCAL_WORLD, LOCAL_LOST_RANK = 4, 1
 LOCAL_CHILD_TIMEOUT_S = 300.0
+
+
+def _beside(fn, *args, **kwargs):
+    """Run ``fn(*args, **kwargs)`` in a thread beside the caller's work; the
+    returned callable waits for it and returns its result or raises what it
+    raised.  Only for sub-phases that claim no time (their walls are then
+    taken beside each other)."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args, **kwargs)
+        except BaseException as exc:  # noqa: BLE001 - re-raised by result()
+            box["exc"] = exc
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def result():
+        thread.join()
+        if "exc" in box:
+            raise box["exc"]
+        return box["out"]
+
+    return result
 
 
 def card_line() -> str:
@@ -4147,13 +4197,14 @@ def policy_phase(torch, card: str, wrap: dict, cfg, batch_size: int, seq: int,
              "shrink": {"ladders": srun["ladders"], "launches": shrink["launches"],
                         "wall_s": shrink["wall_s"]}}
 
-    # -- (b) predict-and-evacuate -----------------------------------------------
-    b = policy_evac(torch, cfg, batch_size, seq, card, device=device)
-    # -- (c) the lock-order sanitizer --------------------------------------------
+    # -- (b) predict-and-evacuate, and beside it (c) the lock-order sanitizer -
+    # -- (neither claims a time) ------------------------------------------------
     c_cfg = tr.TransformerConfig(**{**{k: getattr(cfg, k) for k in (
         "vocab", "d_model", "n_heads", "d_ff", "max_seq")},
         "n_layers": SANITIZE_LAYERS}, dtype=cfg.dtype)
-    c = policy_sanitize(c_cfg, batch_size, seq, card, device=device)
+    c_result = _beside(policy_sanitize, c_cfg, batch_size, seq, card, device=device)
+    b = policy_evac(torch, cfg, batch_size, seq, card, device=device)
+    c = c_result()
     wall_s = time.perf_counter() - t_phase
     print(f"policy phase: {wall_s:.1f} s ({card})")
     return {"a": a_out, "b": b, "c": c, "wall_s": wall_s,
@@ -4318,6 +4369,7 @@ def evac_child(rank: int, world: int, url: str) -> int:
         SnapshotFeed,
         set_evacuation_handler,
     )
+    from tpu_resiliency_torch.soak.ramp import publish_ramp
     from tpu_resiliency_torch.store import StoreClient
     from tpu_resiliency_torch.store.barrier import barrier
     from tpu_resiliency_torch.telemetry import get_registry
@@ -4349,8 +4401,6 @@ def evac_child(rank: int, world: int, url: str) -> int:
                                  store=store, replication=repl, peer_timeout=60.0)
     agg = CrossRankAggregator(store, rank, world)
     reg = get_registry()
-    health = reg.gauge("tpurx_health_score", labels=("check",))
-    strag = reg.gauge("tpurx_straggler_score", labels=("rank",))
     # the victim's own global save of its state, committed alone
     ck = ckpt_mod.AsyncCheckpointer(rank=0, world_size=1, process_index=0, delta=True,
                                     device_digest=True) if rank == EVAC_VICTIM else None
@@ -4393,14 +4443,8 @@ def evac_child(rank: int, world: int, url: str) -> int:
         box["step"] = step
         st["params"], st["opt"], _ = train_step(st["params"], st["opt"], batch)
         sync()
-        # the ramping degradation: the victim's node health worsens step by
-        # step, and the straggler report scores it slower and slower
-        if rank == EVAC_VICTIM:
-            health.labels("evac_ramp").set(min(1.0, step / EVAC_RAMP_ROUNDS))
-        if rank == 0:
-            for r in range(world):
-                strag.labels(str(r)).set(
-                    max(0.2, 1.0 - step / EVAC_RAMP_ROUNDS) if r == EVAC_VICTIM else 1.0)
+        # the ramping degradation (the soak's --ramp-degrade ramp)
+        publish_ramp(reg, rank, world, step, EVAC_VICTIM, EVAC_RAMP_ROUNDS, "evac_ramp")
         agg.round(reg, timeout=60.0)
         if ctl is not None:
             if ctl.tick():
@@ -5260,23 +5304,30 @@ def examples_phase(torch, card: str, device=None) -> dict:
         from tpu_resiliency_torch.store import StoreServer
         from tpu_resiliency_torch.utils.tree import leaves
 
+        # the three one-process examples side by side (none claims a time),
+        # each a process of its own; the two that kill a process after them
         server = StoreServer(host="127.0.0.1", port=0).start_in_thread()
+        ckpt_dir = os.path.join(root, "async_ckpt", "ckpt")
         try:
-            advanced = _example("advanced_example", "inprocess/advanced_example.py",
-                                os.path.join(root, "advanced"), device, {
-                                    "TPURX_RANK": "0", "TPURX_WORLD_SIZE": "1",
-                                    "TPURX_STORE_ADDR": "127.0.0.1",
-                                    "TPURX_STORE_PORT": str(server.port)},
-                                EXAMPLE_RUN_TIMEOUT_S["advanced"])
+            advanced_result = _beside(
+                _example, "advanced_example", "inprocess/advanced_example.py",
+                os.path.join(root, "advanced"), device, {
+                    "TPURX_RANK": "0", "TPURX_WORLD_SIZE": "1",
+                    "TPURX_STORE_ADDR": "127.0.0.1",
+                    "TPURX_STORE_PORT": str(server.port)},
+                EXAMPLE_RUN_TIMEOUT_S["advanced"])
+            async_ckpt_result = _beside(
+                _example, "async_ckpt", "checkpointing/async_ckpt.py",
+                os.path.join(root, "async_ckpt"), device,
+                {"TPURX_CKPT_DEVICE_DIGEST": "1"}, EXAMPLE_RUN_TIMEOUT_S["async_ckpt"],
+                ("--ckpt-dir", ckpt_dir))
+            straggler = _example("straggler", "straggler/example.py",
+                                 os.path.join(root, "straggler"), device, {},
+                                 EXAMPLE_RUN_TIMEOUT_S["straggler"])
+            advanced, async_ckpt = advanced_result(), async_ckpt_result()
         finally:
             server.stop()
         restart = _example_restart(os.path.join(root, "restart"), device)
-        ckpt_dir = os.path.join(root, "async_ckpt", "ckpt")
-        async_ckpt = _example("async_ckpt", "checkpointing/async_ckpt.py",
-                              os.path.join(root, "async_ckpt"), device,
-                              {"TPURX_CKPT_DEVICE_DIGEST": "1"},
-                              EXAMPLE_RUN_TIMEOUT_S["async_ckpt"],
-                              ("--ckpt-dir", ckpt_dir))
         # the restores again here, against the state drawn from the same seed
         dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
         want = _async_ckpt_state(torch, dev)
@@ -5287,9 +5338,6 @@ def examples_phase(torch, card: str, device=None) -> dict:
             got = load_checkpoint(os.path.join(ckpt_dir, name), template=want)
             restored_bits[name] = all(_same_leaf(torch, a, b) for a, b in
                                       zip(leaves(got), leaves(want)))
-        straggler = _example("straggler", "straggler/example.py",
-                             os.path.join(root, "straggler"), device, {},
-                             EXAMPLE_RUN_TIMEOUT_S["straggler"])
         # the CPU rehearsal's steps take ~20 ms at the small config
         train = _example_train(os.path.join(root, "train"), device,
                                *((EXAMPLE_TRAIN_STEPS, EXAMPLE_KILL_S) if on_card
@@ -5367,6 +5415,205 @@ def examples_phase(torch, card: str, device=None) -> dict:
     }
 
 
+# soak phase: the port's chaos soak, each campaign a run of
+# ``python -m tpu_resiliency_torch.soak`` on the card.  (a) is the gate's
+# mix compressed to 120 s with the JAX smoke's probabilities and bounds;
+# (b)-(d) run beside it, and the four beside the examples phase.  (e) runs
+# after the examples, 40 s an arm: the smoke's 20 s arm is about one worker
+# start on the card (8-17 s), and such arms ended with no step or inside
+# the first restart
+SOAK_CAMPAIGNS = {
+    "a": ["--seconds", "120", "--chaos-store", "--quorum", "--store-kill-mid-save",
+          "--exc-p", "0.02", "--qstall-p", "0.012", "--cwedge-p", "0.008",
+          "--store-kill-every", "18", "28",
+          "--inner-bound-ms", "15000", "--outer-bound-ms", "60000"],
+    "b": ["--seconds", "60", "--corrupt-blob", "bitflip"],
+    "c": ["--seconds", "110", "--link-degrade"],
+    "d": ["--seconds", "40", "--store-longpoll-abort", "--longpoll-bound-s", "10.0"],
+    "e": ["--fault-shift", "--seconds", "40", "--fault-seed", "11"],
+}
+SOAK_RUN_TIMEOUT_S = 270.0
+SOAK_BOUND_S = 300.0
+
+
+def _soak_start(name: str, out: str, device) -> tuple:
+    """One campaign as ``python -m tpu_resiliency_torch.soak`` in a session
+    of its own, its output to files under ``out`` and its temporary files
+    (its workdir, so its counts directory) under ``out`` too."""
+    dev = ["--device", device] if device is not None else []
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TPURX_", "FT_", "CHIP_SMOKE"))}
+    env["TMPDIR"] = out
+    if device == "cpu":
+        env["OMP_NUM_THREADS"] = "1"
+    with open(os.path.join(out, f"{name}.out"), "w") as fo, \
+            open(os.path.join(out, f"{name}.err"), "w") as fe:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tpu_resiliency_torch.soak", *SOAK_CAMPAIGNS[name], *dev],
+            cwd=HERE, env=env, stdout=fo, stderr=fe, start_new_session=True)
+    return proc, time.monotonic()
+
+
+def _soak_finish(name: str, out: str, started: tuple) -> dict:
+    """Wait for a campaign (killing its session at the bound) and read the
+    report it printed last."""
+    from tpu_resiliency_torch.soak.launcher import _stop_child
+
+    proc, t0 = started
+    try:
+        rc = proc.wait(timeout=max(0.0, t0 + SOAK_RUN_TIMEOUT_S - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        rc = None
+    _stop_child(proc)
+    stdout = _read(os.path.join(out, f"{name}.out"))
+    last = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+    run = {"name": name, "rc": rc, "wall_s": time.monotonic() - t0,
+           "report": json.loads(last[-1]) if last else {}, "stdout": stdout,
+           "stderr": _read(os.path.join(out, f"{name}.err"))}
+    print(f"soak phase: ({name}) {' '.join(SOAK_CAMPAIGNS[name])}: exit {rc} after "
+          f"{run['wall_s']:.2f} s; report {json.dumps(run['report'])}", flush=True)
+    return run
+
+
+def _soak_processes(out: str) -> dict:
+    """Live processes this phase's campaigns started, pid -> command line:
+    those whose environment names ``out`` as their temporary directory or
+    holds a counts directory under it (each soak, its launcher, store host,
+    rank monitors and workers)."""
+    marks = (f"TMPDIR={out}".encode(), f"SOAK_COUNTS_DIR={out}{os.sep}".encode())
+    found = {}
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                environ = f.read().split(b"\0")
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read().replace(b"\0", b" ")
+        except OSError:
+            continue
+        if any(kv == marks[0] or kv.startswith(marks[1]) for kv in environ):
+            found[int(pid)] = argv.decode(errors="replace")[:200]
+    return found
+
+
+def _card_pids() -> set:
+    """Pids of the compute processes on the card (``nvidia-smi``)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return set()
+    return {int(x) for x in out.split() if x.strip().isdigit()}
+
+
+def soak_start(device=None) -> dict:
+    """Start the soak phase's campaigns (a)-(d), to run beside the examples
+    phase; :func:`soak_phase` then runs (e) and holds the claims."""
+    out = tempfile.mkdtemp(prefix="tpurx_soak_phase_")
+    t0 = time.monotonic()
+    return {"device": device, "out": out, "t0": t0,
+            "started": {name: _soak_start(name, out, device) for name in "abcd"}}
+
+
+def soak_stop(st: dict) -> None:
+    """Stop every campaign :func:`soak_start` or :func:`soak_phase` started
+    (each soak cleans up its own process tree on SIGTERM)."""
+    from tpu_resiliency_torch.soak.launcher import _stop_child
+
+    for proc, _t0 in st["started"].values():
+        _stop_child(proc)
+
+
+def soak_phase(card: str, st: dict) -> dict:
+    """The port's chaos soak (phase 20): five campaigns of ``python -m
+    tpu_resiliency_torch.soak``, their workers on the card
+    (``device="cpu"`` passes ``--device cpu`` and waives the claims that
+    count card launches).  ``st`` is :func:`soak_start`'s handle: (a)-(d)
+    ran beside the examples phase; (e), the goodput A/B, starts here once
+    (b)-(d) have ended, beside the rest of (a)."""
+    device, out, t_phase, started = st["device"], st["out"], st["t0"], st["started"]
+    on_card = device is None
+    runs = {}
+    try:
+        for name in "cdb":      # they end before (a)
+            runs[name] = _soak_finish(name, out, started[name])
+        e_at_s = time.monotonic() - t_phase
+        started["e"] = _soak_start("e", out, device)
+        for name in "ae":
+            runs[name] = _soak_finish(name, out, started[name])
+    finally:
+        soak_stop(st)
+    wall_s = time.monotonic() - t_phase
+    left = _soak_processes(out)
+    on_card_left = sorted(_card_pids() & set(left)) if on_card else []
+    shutil.rmtree(out, ignore_errors=True)
+    a, b, c, d, e = (runs[k]["report"] for k in "abcde")
+    inj = a.get("injected", {})
+    arms = e.get("arms", {})
+    arm_steps = [(arms.get(arm) or {}).get("final_progress") or 0
+                 for arm in ("fixed", "adaptive")]
+    arm_devices = [dv for arm in arms.values() for dv in arm.get("worker_devices") or ["?"]]
+    claims = (
+        ("(a) the gate's mix: ok, monotone progress, the ladder's fingerprint rung",
+         runs["a"]["rc"] == 0 and bool(a.get("ok")) and bool(a.get("monotone_progress"))
+         and bool(a.get("ladder_ok"))),
+        ("(a) at least one store kill, one inner recovery and one fingerprint/released",
+         a.get("store_kills", 0) >= 1 and a.get("inner_ring_recoveries", 0) >= 1
+         and a.get("abort_stage_outcomes", {}).get("fingerprint/released", 0) >= 1),
+        ("(a) a restart cycle for the crashes and hangs injected",
+         bool(a) and (inj.get("crashes", 0) + inj.get("hangs", 0) == 0
+                      or a.get("cycles", 0) >= 1)),
+        ("(a) every started save completed through the store kills",
+         bool(a.get("saves_ok")) and a.get("saves_started", 0) >= 1),
+        ("(a) kernel 1 launched in the workers' tick lanes", not on_card
+         or a.get("kernel1_launches", 0) > 0),
+        ("(a) every worker ran on the card", bool(a.get("workers")) and all(
+            dv.startswith("cuda" if on_card else "cpu") for dv in a.get("worker_devices", ["?"]))),
+        ("(b) corrupt blobs detected, quarantined, every rank restored an older "
+         "iteration bit for bit", runs["b"]["rc"] == 0 and bool(b.get("ok"))
+         and bool(b.get("ckpt_ok")) and b.get("cycles", 0) >= 1
+         and {r[0] for r in b.get("fallback_restores", [])} == {0, 1}),
+        ("(c) the bad link degraded on the armed rank only, with zero restarts",
+         runs["c"]["rc"] == 0 and bool(c.get("coll_ok")) and c.get("cycles") == 0
+         and c.get("coll_degrades", 0) >= 1 and c.get("coll_timeouts", 0) >= 1),
+        ("(d) every long-poll abort landed within the bound, no ret=None",
+         runs["d"]["rc"] == 0 and bool(d.get("lp_ok"))
+         and d.get("lp_episodes_landed", 0) >= 1 and d.get("lp_ret_none") == 0),
+        ("(e) the goodput A/B: both arms ok, a finite gain, at least one step "
+         "saved in each arm (its own progress, not the gain's floor of 1)",
+         bool(e.get("arms_ok")) and math.isfinite(e.get("policy_goodput_gain", math.nan))
+         and e.get("policy_goodput_gain", 0) > 0 and min(arm_steps) > 0),
+        ("(e) both arms' workers ran on the card", len(arms) == 2 and all(
+            dv.startswith("cuda" if on_card else "cpu") for dv in arm_devices)),
+        ("no process of the phase's campaigns is left, on the card or off it",
+         not left and not on_card_left),
+        (f"the phase within {SOAK_BOUND_S:.0f} s", wall_s <= SOAK_BOUND_S),
+    )
+    for claim, met in claims:
+        print(f"soak phase: {claim}: {'met' if met else 'NOT met'}")
+    print(f"soak phase: (e) progress fixed / adaptive {arm_steps[0]} / {arm_steps[1]}, "
+          f"policy_goodput_gain {e.get('policy_goodput_gain')} (the 1.1x gate "
+          f"{'met' if e.get('ok') else 'NOT met'}); (a) kernel 1 launches "
+          f"{a.get('kernel1_launches')}, inner / outer median "
+          f"{a.get('inner_detect_to_recover_ms_median')} / "
+          f"{a.get('outer_detect_to_recover_ms_median')} ms; (e) started at "
+          f"{e_at_s:.2f} s; {wall_s:.2f} s ({card})",
+          flush=True)
+    failed = [cl for cl, met in claims if not met]
+    if failed:
+        for run in runs.values():
+            print(f"soak phase: ({run['name']}) stderr tail:\n{run['stderr'][-3000:]}\n"
+                  f"stdout tail:\n{run['stdout'][-3000:]}")
+        raise AssertionError(f"soak phase: {failed} failed; left {left}, on the "
+                             f"card {on_card_left}")
+    return {"reports": {k: runs[k]["report"] for k in "abcde"},
+            "wall_s": {k: runs[k]["wall_s"] for k in "abcde"}, "phase_s": wall_s,
+            "e_started_at_s": e_at_s,
+            "kernel1_launches": a["kernel1_launches"]}
+
+
 def check_phase(torch, tr) -> None:
     """The model on the card (f32, no TF32) against the CPU at a small size."""
     cfg = tr.TransformerConfig(vocab=256, d_model=64, n_heads=4, n_layers=2,
@@ -5421,6 +5668,12 @@ def main() -> int:
     from tpu_resiliency_torch.utils import cuda_build
     from tpu_resiliency_torch.utils import tree as tree_mod
 
+    t_script = time.monotonic()
+
+    def timeline(phases: str) -> None:
+        print(f"timeline: {phases} ended at {time.monotonic() - t_script:.1f} s",
+              flush=True)
+
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -5435,6 +5688,7 @@ def main() -> int:
     digest = digest_phase(torch, np, dd, tr,
                           torch.device("cuda", torch.cuda.current_device()))
     check_phase(torch, tr)
+    timeline("setup, kernel, digest, check")
 
     # -- train phase: the main path -----------------------------------------
     device = init_distributed()
@@ -5564,37 +5818,63 @@ def main() -> int:
     dist.destroy_process_group()
     dist_mod.reset()
     del params, opt, step, fq, mon, native_mon
+    timeline("train, ckpt, hang, straggler (a), local (a)")
 
     # -- wrap phase: the in-process restart ring -----------------------------
     wrap = wrap_phase(torch, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    timeline("wrap")
 
     # -- injob phase: the launcher's restart ring around the trainer ---------
     injob = injob_phase(torch, card)
+    timeline("injob")
 
     # -- control phase: the job-level control plane around the trainer ------
     control = control_phase(torch, card, injob, wrap, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    timeline("control")
 
     # -- policy phase: the adaptive policy loop around the trainer -----------
     policy = policy_phase(torch, card, wrap, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    timeline("policy")
 
     # -- attrib phase: the attribution gate, the fleet services, DCP interop -
     attrib = attrib_phase(torch, card, injob, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    timeline("attrib")
 
-    # -- mesh phase: the dp x tp sharded step and its sharded save -----------
-    mesh = mesh_phase(torch, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    # -- mesh phase (a): the dp x tp sharded step and its sharded save -------
+    mesh_a = mesh_world_one(torch, cfg, TRAIN_BATCH, TRAIN_SEQ)
 
-    # -- local phase (b), (c): the port's dryrun; node loss across four ranks -
+    # -- mesh phase (b) beside local phase (b), (c), none of which claims a --
+    # -- time: the (2, 2) mesh; the port's dryrun; node loss across 4 ranks --
+    mesh_b_result = _beside(mesh_gloo_four, torch, cfg, TRAIN_BATCH, TRAIN_SEQ,
+                            mesh_a["losses"][:MESH_STEPS])
     local_b = local_dryrun(card)
     local_c = local_four(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, card)
+    mesh = {"a": mesh_a, "b": mesh_b_result()}
+    timeline("mesh, local (b), (c)")
 
     # -- straggler phase (b): four ranks on the card gather over the store ---
     straggler_b = straggler_four(torch, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    timeline("straggler (b)")
 
     # -- wedge phase: the spin kernel in a child the monitor must kill --------
     wedge = wedge_phase(torch, np, q, dd)
+    timeline("wedge")
+
+    # -- soak phase (a)-(d): the port's chaos soak, its workers on the card, --
+    # -- started here to run beside the examples phase -----------------------
+    soak_started = soak_start()
 
     # -- examples phase: the port's examples, each a process on the card -----
-    examples = examples_phase(torch, card)
+    try:
+        examples = examples_phase(torch, card)
+    except BaseException:
+        soak_stop(soak_started)
+        raise
+    timeline("examples")
+
+    # -- soak phase: (e), the goodput A/B, then every campaign's claims ------
+    soak = soak_phase(card, soak_started)
+    timeline("soak")
 
     t1 = kernel["timings"][1]
 
@@ -5707,6 +5987,8 @@ def main() -> int:
         name: c.get("quorum_local_max", 0) for name, c in examples["launches"].items()}
     fp_entry["examples_launches"] = {
         name: c.get("chunk_fingerprint", 0) for name, c in examples["launches"].items()}
+    # the soak phase: (a)'s workers, in their quorum tripwires' tick lanes
+    entry["soak_launches"] = soak["kernel1_launches"]
     spin_entry = {
         "name": "device_spin",
         "route": "cuda",
@@ -5739,6 +6021,7 @@ def main() -> int:
         "wedge_op_ring_read_while_wedged": wedge["op_ring_read_while_wedged"]}}))
     print(json.dumps({"attrib": {**attrib, "card": card}}))
     print(json.dumps({"examples": {**examples, "card": card}}))
+    print(json.dumps({"soak": {**soak, "card": card}}))
     print(json.dumps({"kernels": [entry, fp_entry, spin_entry]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

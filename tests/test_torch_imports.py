@@ -270,6 +270,39 @@ def test_monitor_process_and_chip_smoke_import_chains():
     assert "from tpu_resiliency." not in src and "import tpu_resiliency." not in src
 
 
+_SOAK_CHAIN = [f"tpu_resiliency_torch.soak.{m}" for m in (
+    "__init__", "schedule", "report", "launcher", "worker", "ramp")]
+_SOAK_WORKLOADS = [f"tpu_resiliency_torch.soak.workloads.{m}" for m in (
+    "main", "lckpt", "coll", "evac", "longpoll", "goodput")]
+
+
+def test_soak_imports_without_jax_or_the_jax_package():
+    """The chaos soak and each of its workloads load in a fresh interpreter
+    without JAX or the JAX package (a workload imported as a module runs
+    nothing), and the soak's own modules, which run in the process that
+    starts the workers, load without torch too."""
+    mods = _port_modules()
+    workloads = sorted(
+        f"tpu_resiliency_torch.soak.workloads.{fn[:-3]}"
+        for fn in os.listdir(os.path.join(PKG, "soak", "workloads"))
+        if fn.endswith(".py") and fn != "__init__.py")
+    assert workloads == sorted(_SOAK_WORKLOADS)
+    chain = [m.replace(".__init__", "") for m in _SOAK_CHAIN]
+    assert set(chain + workloads) <= set(mods)
+    proc = subprocess.run(
+        [sys.executable, "-c", _HYGIENE_SCRIPT, REPO, json.dumps(chain + workloads)],
+        capture_output=True, text=True, timeout=120, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_TORCH_SCRIPT, REPO, json.dumps(chain)],
+        capture_output=True, text=True, timeout=120, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
 def test_port_sources_name_no_jax_module():
     """No port source imports JAX or names a JAX-package module path."""
     offenders = []

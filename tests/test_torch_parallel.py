@@ -387,3 +387,30 @@ def test_device_max_reduce_world1(world1):
     fn = make_timeouts_reduce_fn()
     assert fn({"a": 3.0, "b": 7.0}) == {"a": 3.0, "b": 7.0}
     assert health().route("device_max_reduce", "processes").ok_count == 2
+
+
+def test_standalone_shrink_rung_keeps_the_group(world1, monkeypatch):
+    """With no wrapper's hook installed, ``trip_shrink`` runs the gated
+    ``ShrinkMeshStage`` alone, as the JAX package does: with
+    ``TPURX_SHRINK_MESH`` unset it is skipped and the process groups stay,
+    so a wrapped collective's post-shrink attempt still runs.  The port's
+    bare ladder used to abort and destroy every group here, and
+    ``device_max_reduce``'s post-shrink attempt raised ``call
+    init_distributed() first`` (the soak's ``--link-degrade`` on the card)."""
+    import torch.distributed as dist
+
+    from tpu_resiliency.parallel.degrade import trip_shrink as jax_trip_shrink
+    from tpu_resiliency_torch.parallel.degrade import trip_shrink
+
+    monkeypatch.delenv("TPURX_SHRINK_MESH", raising=False)
+    assert "shrink_mesh=skipped" in trip_shrink("lone_op", "axis0")
+    assert "shrink_mesh=skipped" in jax_trip_shrink("lone_op", "axis0")
+    assert dist.is_initialized()
+    # the armed primary lane stalls past its deadline; the ladder's only
+    # rung is the shrink, and the attempt after it must land
+    for name, value in (("TPURX_FAULT", "coll_stall"), ("TPURX_COLL_DEGRADE", "shrink"),
+                        ("TPURX_COLL_RETRIES", "0"), ("TPURX_COLL_DEADLINE_MS", "100")):
+        monkeypatch.setenv(name, value)
+    assert device_max_reduce([2.0, -1.0]) == [2.0, -1.0]
+    assert dist.is_initialized()
+    assert health().route("device_max_reduce", "processes").timeout_count == 1

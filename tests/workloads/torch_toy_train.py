@@ -16,6 +16,8 @@ Env:
                   quorum tripwire wired to request an in-job restart
                   (WorkloadControlRequest.RestartWorkload)
   TOY_STEP_TIME   seconds per iteration (default 0.05)
+  TOY_DEVICE      "cuda" or "cpu": touch that device before the first
+                  iteration (unset: no device work outside the quorum lane)
 """
 
 import os
@@ -55,6 +57,16 @@ def main():
 
     client = RankMonitorClient()
     client.init_workload_monitoring()
+
+    device = os.environ.get("TOY_DEVICE")
+    if device:
+        import torch
+
+        from tpu_resiliency_torch.utils.device import resolve_device
+
+        dev = resolve_device(None if device == "cuda" else device)
+        torch.zeros(1, device=dev).add_(1)
+        print(f"toy[{rank}] device={dev}", flush=True)
 
     quorum = None
     if quorum_hang:

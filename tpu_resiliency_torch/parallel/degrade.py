@@ -83,16 +83,19 @@ def default_relayout() -> str:
 
 def trip_shrink(op: str, axis: str, culprits: Tuple[int, ...] = ()) -> str:
     """Fire the targeted-shrink hook installed by the in-process wrapper
-    (``inprocess/abort.py``); standalone processes (no wrapper) get a
-    one-rung ladder around a bare :class:`AbortTorchDistributed`."""
+    (``inprocess/abort.py``); standalone processes (no wrapper) fall back
+    to a one-rung ladder around a bare :class:`ShrinkMeshStage`, which is
+    opt-in (``TPURX_SHRINK_MESH``) as in the JAX package: gated off, it
+    records its outcome and leaves the process groups alone, so the
+    post-shrink attempt still has its group."""
     from ..inprocess.abort import (
         AbortLadder,
-        AbortTorchDistributed,
         DegradeToShrink,
+        ShrinkMeshStage,
         get_degrade_hook,
     )
 
     hook: Optional[Callable] = get_degrade_hook()
     if hook is None:
-        hook = DegradeToShrink(AbortLadder(AbortTorchDistributed(), name="degrade"))
+        hook = DegradeToShrink(AbortLadder(ShrinkMeshStage(), name="degrade"))
     return hook(op=op, axis=axis, culprits=tuple(culprits))

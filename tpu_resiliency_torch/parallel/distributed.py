@@ -21,6 +21,8 @@ calls ``jax.distributed.initialize`` with a coordinator derived from the
   at store port + 1, the JAX package's coordinator convention.
 - A world of one process gets an in-memory ``HashStore`` instead of a TCP
   rendezvous, so the NCCL path also runs on a single card with no launcher.
+- An NCCL group's communicator is made here, by one barrier, and not at the
+  group's first collective, which may run under a deadline.
 - ``store=`` takes a c10d store for the rendezvous instead: the in-process
   restart ring passes a ``PrefixStore`` scoped to the iteration, so each
   iteration's world rendezvouses on fresh keys.
@@ -110,6 +112,11 @@ def init_distributed(
         dist.init_process_group(
             backend, init_method=init_method, world_size=world_size, rank=rank
         )
+    if backend == "nccl":
+        # NCCL makes a group's communicator at its first collective, which
+        # takes seconds on the card: make it here, so that the first wrapped
+        # collective does not pay for it under its deadline
+        dist.barrier(device_ids=[torch.cuda.current_device()])
     _device = dev
     return dev
 
