@@ -27,6 +27,16 @@ Phases, each of which raises on failure (the run then exits non-zero):
    beside, at the flagship's largest leaf (the f32 ``embed``, 65,536,000 B),
    at 1 GiB and over the whole save (the batched launch in turns with the
    141 one-leaf calls), beside the plain version and the bytes bound;
+3b. adamw — hold the fused AdamW kernel (``ops/csrc/adamw.cu``) against the
+   eager loop it replaced (``adamw_reference``) bit for bit in every
+   parameter, ``mu``, ``nu`` and master at GPT-2 XL's full leaf list (387
+   leaves, 1,556,764,800 bf16 parameters with an f32 master, at step 4 of
+   random state), in one launch.  Then time it on the card in turns, the
+   host queued behind a device sleep, beside the eager loop (CUDA events;
+   its host enqueue beside), the 28-bytes-a-parameter bound and
+   ``torch.optim.AdamW(fused=True)`` over f32 parameters and gradients of
+   the same shapes (28 bytes a parameter too), a yardstick only, since it
+   orders the arithmetic differently and keeps no master;
 4. check — the port's model on the card in f32 against the same model on
    the CPU, at a small size (loss before and after one step);
 5. train — the main path: the flagship ``TransformerConfig()`` at full
@@ -883,6 +893,118 @@ def digest_phase(torch, np, dd, tr, dev) -> dict:
     del state, rows
     return {"checked": checked, "batched": batched, "timings": timings,
             "max_abs_err": worst}
+
+
+ADAMW_HYPER = dict(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, wd=0.01)
+
+
+def adamw_phase(torch, tr, adamw, dev) -> dict:
+    """Kernel 4 against the eager loop at GPT-2 XL's leaf list (the
+    benchmark's ``gpt2-xl`` configuration), bit for bit and in one launch;
+    its time in turns beside the loop, the bound and
+    ``torch.optim.AdamW(fused=True)``."""
+    from portbench import adamw_counts, spec
+
+    xl = spec.config({"file": "portbench/configs/gpt2-xl.json"})["model"]
+    cfg = tr.TransformerConfig(**xl, dtype=torch.bfloat16)
+    model = tr.init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    opt = tr.init_opt_state(model)
+    ps = [p.detach() for p in model.parameters()]
+    n_params = sum(p.numel() for p in ps)
+    if n_params != adamw_counts.model_params(xl):
+        raise AssertionError(f"GPT-2 XL has {n_params} parameters, the benchmark "
+                             f"counts {adamw_counts.model_params(xl)}")
+    g = torch.Generator(dev).manual_seed(1)
+    with torch.no_grad():
+        for t in opt["mu"]:
+            t.normal_(0.0, 1e-3, generator=g)
+        for t in opt["nu"]:
+            t.normal_(0.0, 1e-6, generator=g).abs_()
+        grads = [(torch.randn(p.shape, generator=g, device=dev) * 1e-3).to(p.dtype)
+                 for p in ps]
+    count = torch.full((), 4, dtype=torch.int32, device=dev)
+    cf = count.to(torch.float32)
+    bc1, bc2 = 1 - ADAMW_HYPER["b1"] ** cf, 1 - ADAMW_HYPER["b2"] ** cf
+    fused = (ps, opt["mu"], opt["nu"], opt["master"])
+    plain = tuple([t.clone() for t in ts] for ts in fused)
+    table = adamw.LeafTable()
+
+    def kernel():
+        adamw.fused_adamw(fused[0], grads, *fused[1:], bc1, bc2, **ADAMW_HYPER,
+                          table=table)
+
+    def loop():
+        adamw.adamw_reference(plain[0], grads, *plain[1:], bc1, bc2, **ADAMW_HYPER)
+
+    before = (adamw.fused_adamw.launches, adamw.fused_adamw.leaves)
+    kernel()
+    launched = (adamw.fused_adamw.launches - before[0],
+                adamw.fused_adamw.leaves - before[1])
+    loop()
+    torch.cuda.synchronize()
+    differ, max_abs_err = [], 0.0
+    for what, a_list, b_list in zip(("param", "mu", "nu", "master"), fused, plain):
+        for k, (a, b) in enumerate(zip(a_list, b_list)):
+            ia = a.view(torch.int16 if a.element_size() == 2 else torch.int32)
+            ib = b.view(torch.int16 if b.element_size() == 2 else torch.int32)
+            if not torch.equal(ia, ib):
+                differ.append((what, k, int((ia != ib).sum())))
+            max_abs_err = max(max_abs_err, float((a.float() - b.float()).abs().max()))
+    if differ:
+        raise AssertionError(f"fused AdamW differs from the eager loop in "
+                             f"{len(differ)} tensors (largest difference "
+                             f"{max_abs_err}): {differ[:8]}")
+    if launched != (1, len(ps)):
+        raise AssertionError(f"the XL update took {launched} (launches, leaves), "
+                             f"not (1, {len(ps)})")
+    print(f"adamw phase: fused AdamW equals the eager loop bit for bit in all "
+          f"{4 * len(ps)} tensors of GPT-2 XL's {len(ps)} leaves ({n_params} "
+          f"parameters, bf16 with an f32 master), in one launch; largest "
+          f"difference {max_abs_err}")
+
+    card = card_line()
+    rec = device_and_host_in_turns({"ms": kernel}, {"ms": 10}, 4, torch)
+    rec.update(time_in_turns({"kernel_events_ms": kernel, "plain_ms": loop}, 2, 4,
+                             torch))
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    rec["plain_ms_host"] = sorted(host)[1]
+    del plain, loop
+    torch.cuda.empty_cache()
+    # the yardstick: PyTorch's fused AdamW over f32 parameters and gradients
+    # of the same shapes (read p, g, m, v; write p, m, v: 28 bytes too)
+    lib_params = [m.clone().requires_grad_() for m in opt["master"]]
+    for p, gr in zip(lib_params, grads):
+        p.grad = gr.to(torch.float32)
+    lib = torch.optim.AdamW(lib_params, lr=ADAMW_HYPER["lr"], betas=(0.9, 0.95),
+                            eps=1e-8, weight_decay=0.01, fused=True)
+    rec.update(time_in_turns({"kernel_events_2_ms": kernel, "library_ms": lib.step},
+                             10, 4, torch))
+    del lib, lib_params
+    rec["bound_ms"] = adamw_counts.adamw_bound_s(n_params) * 1e3
+    rec["bound_by"] = "bytes"
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    rec.update(leaves=len(ps), params=n_params, launches=launched[0],
+               max_abs_err=max_abs_err, differing_elements=sum(d[2] for d in differ))
+    print(f"adamw phase: GPT-2 XL ({len(ps)} leaves, {n_params} parameters): "
+          f"kernel {rec['ms']:.3f} ms on the card ({rec['ms_host'] * 1e3:.1f} us "
+          f"of host enqueue; {rec['kernel_events_ms']:.3f} / "
+          f"{rec['kernel_events_2_ms']:.3f} ms by events in the turns), bound "
+          f"{rec['bound_ms']:.3f} ms (bytes, {100 * rec['bound_share']:.1f}% of "
+          f"it); eager loop {rec['plain_ms']:.3f} ms by events, "
+          f"{rec['plain_ms_host']:.1f} ms of host enqueue; "
+          f"torch.optim.AdamW(fused=True) over f32 {rec['library_ms']:.3f} ms "
+          f"(a yardstick; {card})")
+    met = rec["bound_share"] >= 0.8
+    print(f"adamw phase: at least 80% of the bytes bound: {'met' if met else 'NOT met'}")
+    del model, opt, ps, grads, fused, table
+    torch.cuda.empty_cache()
+    return rec
 
 
 def _same_bytes(torch, a, b) -> bool:
@@ -2564,6 +2686,7 @@ def mesh_world_one(torch, cfg, batch_size: int, seq: int, device=None) -> dict:
     from tpu_resiliency_torch.checkpointing.async_ckpt import checkpointer as ckpt_mod
     from tpu_resiliency_torch.checkpointing.async_ckpt import device_digest as dd
     from tpu_resiliency_torch.models import transformer as tr
+    from tpu_resiliency_torch.ops import adamw as adamw_mod
     from tpu_resiliency_torch.ops import quorum as q
     from tpu_resiliency_torch.parallel import distributed as dist_mod
     from tpu_resiliency_torch.parallel import init_distributed, make_mesh
@@ -2614,13 +2737,16 @@ def mesh_world_one(torch, cfg, batch_size: int, seq: int, device=None) -> dict:
         q.local_max.launches = 0
         q.local_max.launches_by_value = 0
         q.local_max.launches_pointer = 0
+        adamw_mod.fused_adamw.launches = 0
         losses = run("mesh", n_steps)
         sync()
         fq.check_now()
         lm_launches = q.local_max.launches
+        adamw_launches = adamw_mod.fused_adamw.launches
         print(f"mesh phase (a): {n_steps} steps on the (1, 1) mesh: losses "
               f"{[round(v, 4) for v in losses]}; unsharded route "
-              f"{[round(v, 4) for v in plain]}; local max launches {lm_launches}")
+              f"{[round(v, 4) for v in plain]}; local max launches {lm_launches}; "
+              f"fused AdamW launches {adamw_launches}")
 
         # one sharded save of the train state, restored bit for bit
         r = routes["mesh"]
@@ -2675,6 +2801,8 @@ def mesh_world_one(torch, cfg, batch_size: int, seq: int, device=None) -> dict:
             ("no trip", not trips),
             ("the local max launched once per fused step",
              not on_card or lm_launches == n_steps),
+            ("fused AdamW launched once per sharded step on the card, never on "
+             "the CPU", adamw_launches == (n_steps if on_card else 0)),
             ("the fingerprint launched once over every owned shard",
              owned == n_leaves
              and (not on_card or (fp_launches == 1 and fp_shards == owned))),
@@ -2684,7 +2812,8 @@ def mesh_world_one(torch, cfg, batch_size: int, seq: int, device=None) -> dict:
             if not met:
                 raise AssertionError(f"mesh phase (a): {claim} failed")
         return {"losses": losses, "unsharded_losses": plain,
-                "local_max_launches": lm_launches, "fingerprint_launches": fp_launches,
+                "local_max_launches": lm_launches, "adamw_launches": adamw_launches,
+                "fingerprint_launches": fp_launches,
                 "fingerprint_shards": fp_shards,
                 "owned": owned, "leaves": n_leaves, "step_ms": step_ms,
                 "step_ms_rounds": samples, "save_call_ms": call_ms,
@@ -5614,27 +5743,35 @@ def soak_phase(card: str, st: dict) -> dict:
             "kernel1_launches": a["kernel1_launches"]}
 
 
-def check_phase(torch, tr) -> None:
-    """The model on the card (f32, no TF32) against the CPU at a small size."""
+def check_phase(torch, tr, adamw) -> int:
+    """The model on the card (f32, no TF32) against the CPU at a small size;
+    returns kernel 4's launches in the card's step."""
     cfg = tr.TransformerConfig(vocab=256, d_model=64, n_heads=4, n_layers=2,
                                d_ff=128, max_seq=32, dtype=torch.float32)
-    losses = {}
+    losses, launches = {}, {}
     for device in ("cpu", None):
         params = tr.init_params(cfg, torch.Generator("cpu").manual_seed(1),
                                 device=device)
         opt = tr.init_opt_state(params)
         batch = tr.make_batch(cfg, 2, 32, seed=1, device=device)
         step = tr.make_train_step(cfg, lr=1e-2)
+        before = adamw.fused_adamw.launches
         _, _, first = step(params, opt, batch)
+        launches[device] = adamw.fused_adamw.launches - before
         second = tr.loss_fn(params, batch, cfg).detach()
         losses[device] = (float(first), float(second))
+    if launches != {"cpu": 0, None: 1}:
+        raise AssertionError(f"fused AdamW launches in the check's CPU and card "
+                             f"steps: {launches['cpu']}, {launches[None]}, not 0, 1")
     cpu, card = losses["cpu"], losses[None]
     # f32 sums in another order on the card: 1e-4 relative is ~1000 ulp
     for a, b in zip(cpu, card):
         if not math.isfinite(b) or abs(a - b) > 1e-4 * abs(a):
             raise AssertionError(f"card loss {card} disagrees with CPU {cpu}")
     print(f"check phase: small model, loss before/after one step: card "
-          f"{card[0]:.6f}/{card[1]:.6f}, CPU {cpu[0]:.6f}/{cpu[1]:.6f}")
+          f"{card[0]:.6f}/{card[1]:.6f}, CPU {cpu[0]:.6f}/{cpu[1]:.6f}; fused "
+          f"AdamW launches {launches[None]} on the card, 0 on the CPU")
+    return launches[None]
 
 
 def main() -> int:
@@ -5663,6 +5800,7 @@ def main() -> int:
     from tpu_resiliency_torch.checkpointing.async_ckpt import checkpointer as ckpt_mod
     from tpu_resiliency_torch.checkpointing.async_ckpt import device_digest as dd
     from tpu_resiliency_torch.models import transformer as tr
+    from tpu_resiliency_torch.ops import adamw as adamw_mod
     from tpu_resiliency_torch.ops import quorum as q
     from tpu_resiliency_torch.parallel import init_distributed, make_mesh
     from tpu_resiliency_torch.utils import cuda_build
@@ -5687,8 +5825,10 @@ def main() -> int:
     kernel = kernel_phase(torch, np, q)
     digest = digest_phase(torch, np, dd, tr,
                           torch.device("cuda", torch.cuda.current_device()))
-    check_phase(torch, tr)
-    timeline("setup, kernel, digest, check")
+    adamw_rec = adamw_phase(torch, tr, adamw_mod,
+                            torch.device("cuda", torch.cuda.current_device()))
+    check_launches = check_phase(torch, tr, adamw_mod)
+    timeline("setup, kernel, digest, adamw, check")
 
     # -- train phase: the main path -----------------------------------------
     device = init_distributed()
@@ -5720,6 +5860,8 @@ def main() -> int:
     q.local_max.launches = 0
     q.local_max.launches_by_value = 0
     q.local_max.launches_pointer = 0
+    adamw_mod.fused_adamw.launches = 0
+    adamw_mod.fused_adamw.leaves = 0
     mon.start()
     losses = []
     for i in range(WARMUP_STEPS + TIMED_STEPS):
@@ -5743,6 +5885,8 @@ def main() -> int:
             break
         time.sleep(0.0005)
     train_launches, by_value, pointer = counts
+    adamw_launches = adamw_mod.fused_adamw.launches
+    adamw_leaves = adamw_mod.fused_adamw.leaves
 
     losses = [float(v) for v in losses]
     step_ms = elapsed / TIMED_STEPS * 1e3
@@ -5762,6 +5906,13 @@ def main() -> int:
         raise AssertionError(f"loss not finite and falling: {losses}")
     if fused_trips or mon_trips:
         raise AssertionError(f"healthy trips: fused {fused_trips}, monitor {mon_trips}")
+    n_leaves = len(list(params.parameters()))
+    print(f"train phase: fused AdamW launches {adamw_launches} over "
+          f"{adamw_leaves} leaves ({n_steps} steps of {n_leaves} leaves)")
+    if (adamw_launches, adamw_leaves) != (n_steps, n_steps * n_leaves):
+        raise AssertionError(f"fused AdamW launched {adamw_launches} times over "
+                             f"{adamw_leaves} leaves for {n_steps} steps of "
+                             f"{n_leaves} leaves")
     if ticks < 1 or train_launches != n_steps + ticks or by_value != train_launches:
         raise AssertionError(
             f"local max kernel launched {train_launches} times ({by_value} by "
@@ -6022,7 +6173,21 @@ def main() -> int:
     print(json.dumps({"attrib": {**attrib, "card": card}}))
     print(json.dumps({"examples": {**examples, "card": card}}))
     print(json.dumps({"soak": {**soak, "card": card}}))
-    print(json.dumps({"kernels": [entry, fp_entry, spin_entry]}))
+    adamw_entry = {
+        "name": "fused_adamw",
+        "route": "cuda",
+        "source": "tpu_resiliency_torch/ops/csrc/adamw.cu",
+        # no Pallas kernel: XLA's fusion of the jitted update
+        "replaces": "tpu_resiliency/models/transformer.py:208-215, 243",
+        "launches": adamw_launches,
+        "check_launches": check_launches,
+        "mesh_launches": mesh["a"]["adamw_launches"],
+        **{k: adamw_rec[k] for k in ("max_abs_err", "differing_elements", "ms",
+                                     "ms_host", "plain_ms", "plain_ms_host",
+                                     "bound_ms", "bound_by", "bound_share",
+                                     "library_ms", "leaves", "params")},
+    }
+    print(json.dumps({"kernels": [entry, fp_entry, spin_entry, adamw_entry]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

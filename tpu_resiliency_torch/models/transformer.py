@@ -56,6 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ..ops.adamw import LeafTable, adamw_reference, fused_adamw
 from ..parallel.mesh import DpTp, dp_tp
 from ..telemetry import flight
 from ..parallel.tensor_parallel import (
@@ -194,7 +195,8 @@ def init_params(
     def dense(key, shape, scale=None):
         scale = scale if scale is not None else (1.0 / np.sqrt(shape[0]))
         w = torch.randn(shape, generator=g, device=g.device, dtype=torch.float32)
-        return (w * scale)[_box(key, shape, ax)].to(device=dev, dtype=dt)
+        # a column box is a strided view: every leaf is its own dense tensor
+        return (w * scale)[_box(key, shape, ax)].to(device=dev, dtype=dt).contiguous()
 
     def ones(n):
         return torch.ones(n, device=dev, dtype=dt)
@@ -346,9 +348,13 @@ def make_train_step(cfg: TransformerConfig, lr: float = 1e-3, mesh=None):
     ``mu2 = b1*mu + (1-b1)*g``, ``nu2 = b2*nu + (1-b2)*g^2``, bias
     correction by ``count``, then ``m2 = m - lr*(mu_hat/(sqrt(nu_hat)+eps)
     + wd*m)`` on the fp32 master (weight decay on every leaf, embeddings and
-    norm scales included), cast down into the parameter.  Parameters and
-    state are updated in place; the returned loss is a 0-d device tensor
-    (reading it syncs the device).
+    norm scales included), cast down into the parameter.  On a card the
+    update is one launch of kernel 4 over every leaf
+    (:func:`~tpu_resiliency_torch.ops.adamw.fused_adamw`, the same results
+    bit for bit); on the CPU it is the eager loop
+    (:func:`~tpu_resiliency_torch.ops.adamw.adamw_reference`).  Parameters
+    and state are updated in place; the returned loss is a 0-d device
+    tensor (reading it syncs the device).
 
     With ``mesh`` the step takes parameters placed on that mesh
     (:func:`init_params` / :func:`params_from_jax` with the same ``mesh``)
@@ -359,6 +365,8 @@ def make_train_step(cfg: TransformerConfig, lr: float = 1e-3, mesh=None):
     raises before any step.  Each call is a ``step.enqueue`` flight span:
     the host's enqueue of the step, which nothing in it waits for."""
     b1, b2, eps, wd = 0.9, 0.95, 1e-8, 0.01
+    hyper = dict(lr=lr, b1=b1, b2=b2, eps=eps, wd=wd)
+    table = LeafTable()
     if mesh is not None:
         _resolve(None, mesh)
         _axes(cfg, mesh)
@@ -383,23 +391,13 @@ def make_train_step(cfg: TransformerConfig, lr: float = 1e-3, mesh=None):
             cf = count.to(torch.float32)
             bc1 = 1 - b1 ** cf
             bc2 = 1 - b2 ** cf
-            masters: List[Optional[torch.Tensor]] = opt.get("master") or [
-                None] * len(opt["mu"])
-            for p, mu, nu, master in zip(
-                params.parameters(), opt["mu"], opt["nu"], masters
-            ):
-                g32 = p.grad.to(torch.float32)
-                mu.copy_(b1 * mu + (1 - b1) * g32)
-                nu.copy_(b2 * nu + (1 - b2) * torch.square(g32))
-                mu_hat = mu / bc1
-                nu_hat = nu / bc2
-                # update in fp32 against the master copy; cast down only for
-                # the compute params (sub-ulp updates accumulate in the master)
-                m = master if master is not None else p.to(torch.float32)
-                m2 = m - lr * (mu_hat / (torch.sqrt(nu_hat) + eps) + wd * m)
-                if master is not None:
-                    master.copy_(m2)
-                p.copy_(m2)
+            ps = list(params.parameters())
+            args = (ps, [p.grad for p in ps], opt["mu"], opt["nu"],
+                    opt.get("master"), bc1, bc2)
+            if ps[0].is_cuda:
+                fused_adamw(*args, **hyper, table=table)
+            else:
+                adamw_reference(*args, **hyper)
             opt["count"] = count
         return params, opt, loss.detach()
 
